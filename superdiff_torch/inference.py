@@ -1,0 +1,189 @@
+"""Run-directory loading and epsilon-function construction for sampling.
+
+Port of ``superdiff_tpu/inference.py``. A torch model carries its own
+weights, so where the JAX functions take ``(model, params)`` these take the
+module. ``load_run`` reads exported inference artifacts (``config.yaml`` +
+``ema_params.npz``, the ``cli/export.py`` format); loading Orbax training
+checkpoints is not ported yet.
+"""
+
+from __future__ import annotations
+
+import functools
+import os
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+
+from superdiff_torch.compat.flax_params import (
+    EXPORT_FILE, load_exported_params, load_state_dict)
+from superdiff_torch.config import Config, load_config
+from superdiff_torch.diffusion.schedules import DiffusionSchedule, make_schedule
+from superdiff_torch.models.presets import model_from_config
+
+# Parameters that stay float32 under the sampling dtype policy: norm
+# scales/biases, the conditioning MLPs, and the float32 output conv.
+_F32_NAME_TOKENS = ("norm", "time_mlp", "class_emb", "emb_proj", "out_conv")
+
+
+def _keeps_f32(name: str) -> bool:
+    return any(tok in part for part in name.split(".")
+               for tok in _F32_NAME_TOKENS)
+
+
+def cast_sampling_params(state_dict: Dict[str, torch.Tensor],
+                         dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
+    """Cast the conv / attention / dense weights that the model consumes in
+    ``compute_dtype`` to ``dtype``; leaves consumed in float32 (see
+    ``_F32_NAME_TOKENS``) are untouched."""
+    return {k: (v.to(dtype) if v.dtype == torch.float32 and not _keeps_f32(k)
+                else v)
+            for k, v in state_dict.items()}
+
+
+def inference_model(model):
+    """Set the inference dtype policy on ``model`` in place (bfloat16 norm
+    passes; statistics still reduce in float32). No-op when
+    ``SUPERDIFF_TPU_SAMPLE_F32`` is set."""
+    if os.environ.get("SUPERDIFF_TPU_SAMPLE_F32"):
+        return model
+    if hasattr(model, "set_norm_dtype"):
+        model.set_norm_dtype(torch.bfloat16)
+    return model
+
+
+@torch.no_grad()
+def apply_sampling_policy(model):
+    """The production sampling configuration, applied in place: bfloat16
+    norm passes and a one-time bfloat16 cast of the conv/attention/dense
+    weights. Opt out with ``SUPERDIFF_TPU_SAMPLE_F32=1``."""
+    if os.environ.get("SUPERDIFF_TPU_SAMPLE_F32"):
+        return model
+    inference_model(model)
+    model.load_state_dict(cast_sampling_params(model.state_dict()),
+                          assign=True)
+    return model
+
+
+def _to_channels_last(model):
+    for m in model.modules():
+        if isinstance(m, torch.nn.Conv2d):
+            m.weight.data = m.weight.data.contiguous(
+                memory_format=torch.channels_last)
+    return model
+
+
+def load_run(run_dir: str, device="cuda") -> Tuple[
+        Config, torch.nn.Module, DiffusionSchedule]:
+    """Load ``(cfg, model, schedule)`` from an exported inference artifact
+    (``config.yaml`` + ``ema_params.npz``): the model holds the EMA weights
+    (float32) on ``device``, in eval mode."""
+    cfg_path = os.path.join(run_dir, "config.yaml")
+    if not os.path.exists(cfg_path):
+        raise FileNotFoundError(f"no config.yaml in {run_dir}")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but no CUDA device is "
+                           "available (pass device='cpu' explicitly)")
+    cfg = load_config(cfg_path)
+    export_path = os.path.join(run_dir, EXPORT_FILE)
+    if not os.path.exists(export_path):
+        raise NotImplementedError(
+            f"{run_dir} has no {EXPORT_FILE}; loading Orbax training "
+            "checkpoints is not ported yet (export the run with "
+            "superdiff_tpu.cli.export first)")
+    t = cfg.training
+    schedule = make_schedule(t.num_timesteps, kind=t.schedule,
+                             beta_start=t.beta_start, beta_end=t.beta_end,
+                             device=device)
+    model = model_from_config(cfg, device="meta" if device.type == "cuda"
+                              else device)
+    if device.type == "cuda":
+        model = model.to_empty(device=device)
+    load_state_dict(model, load_exported_params(export_path))
+    model = _to_channels_last(model.float().eval())
+    return cfg, model, schedule
+
+
+def resolve_sampler_spec(cfg: Config,
+                         method: Optional[str] = None,
+                         num_steps: Optional[int] = None,
+                         spacing: str = "auto",
+                         allowed=("ddpm", "ddim", "dpmpp"),
+                         fallback: str = "ddpm"):
+    """Where a run's stamped sampling block meets CLI overrides; returns
+    ``(method, num_steps, t_spacing, clip_x0)`` (same rules as the JAX
+    package: explicit values win; a stamped method in ``allowed`` is
+    adopted with its step count except for ddpm)."""
+    scfg = getattr(cfg, "sampling", None)
+    if method is None:
+        stamped = getattr(scfg, "method", None)
+        if stamped in allowed:
+            method = stamped
+            if num_steps is None and method != "ddpm":
+                num_steps = getattr(scfg, "num_steps", None)
+        else:
+            method = fallback
+    if spacing in (None, "auto"):
+        spacing = getattr(scfg, "t_spacing", "leading")
+    clip_x0 = bool(getattr(scfg, "clip_x0", True))
+    return method, num_steps, spacing, clip_x0
+
+
+def check_superpose_compat(cfg: Config, cfg2: Config) -> None:
+    """Raise unless two runs share the diffusion process (T, resolution and
+    beta schedule)."""
+    t, t2 = cfg.training, cfg2.training
+    if t2.num_timesteps != t.num_timesteps:
+        raise ValueError("runs have different T; cannot superpose")
+    if t2.resolution != t.resolution:
+        raise ValueError("runs have different resolutions")
+    if (t2.schedule, t2.beta_start, t2.beta_end) != (
+            t.schedule, t.beta_start, t.beta_end):
+        raise ValueError(
+            f"runs have different beta schedules "
+            f"({t.schedule} {t.beta_start}..{t.beta_end} vs "
+            f"{t2.schedule} {t2.beta_start}..{t2.beta_end}); "
+            "cannot superpose")
+
+
+def make_eps_fn_p(model, label=None,
+                  schedule: Optional[DiffusionSchedule] = None) -> Callable:
+    """Sampler-facing eps function with the module as the FIRST argument:
+    ``fn(m, x, t)`` (or ``fn(m, x, t, y)`` for ``label="per_sample"``).
+
+    For conditional models ``label=None`` means the null (unconditional)
+    label and an int broadcasts over the batch. v/x0-headed models are
+    converted to eps (``schedule`` required for those)."""
+    kind = getattr(model, "parameterization", "eps")
+    if kind != "eps" and schedule is None:
+        raise ValueError(
+            f"model predicts {kind!r}; pass schedule= to make_eps_fn_p so "
+            "the prediction can be converted to eps for the samplers")
+
+    def _apply(m, x, t, *cond):
+        pred = m(x, t, *cond)
+        if kind == "eps":
+            return pred
+        from superdiff_torch.diffusion.process import eps_from_pred
+        return eps_from_pred(schedule, x, t, pred, kind)
+
+    conditional = getattr(model, "num_classes", 0) > 0
+    if not conditional or label == "per_sample":
+        return _apply
+    fixed = model.null_label if label is None else int(label)
+
+    def fn(m, x, t):
+        y = torch.full((x.shape[0],), fixed, dtype=torch.long,
+                       device=x.device)
+        return _apply(m, x, t, y)
+
+    return fn
+
+
+def make_eps_fn(model, label=None,
+                schedule: Optional[DiffusionSchedule] = None) -> Callable:
+    """:func:`make_eps_fn_p` with ``model`` bound: ``(x, t) -> eps`` (or
+    ``(x, t, y)`` for ``label="per_sample"``)."""
+    return functools.partial(make_eps_fn_p(model, label, schedule=schedule),
+                             model)
