@@ -8,27 +8,50 @@ Run from the root of a checkout, with no arguments:
 Phases (any failure raises and exits non-zero; nothing is skipped):
 
 1. device: require CUDA; print the card's name and power limit;
-2. build: compile the flash-attention kernel (csrc/flash_attn_fwd.cu) with
-   nvcc and print the build time and ptxas report;
-3. kernel vs plain version on the card, bf16 and f32, at the sampling
-   path's shapes (batch 16, and the CFG 2B batch) and at shapes with several
-   K tiles, a ragged edge and D=128; CUDA-event times of the kernel, the
-   plain version and F.scaled_dot_product_attention (timed only as the
-   library yardstick; the port never calls it), and the kernel's own
-   device time from the profiler;
-4. the slice through the user entry points: the full-width wide256 CondUNet
-   with seeded random weights on every leaf, written as an exported run dir
-   and loaded back through superdiff_torch.inference.load_run:
+2. build: compile both kernel sources (csrc/flash_attn_fwd.cu and
+   csrc/flash_attn_bwd.cu), one nvcc each, started together; print the build
+   time and the ptxas reports;
+3. kernels vs their plain versions on the card, bf16 and f32:
+   (a) the forward (B1) at the path's shapes (batch 16, and the CFG 2B batch)
+       and at shapes with several K tiles, a ragged edge and D=128;
+   (b) the backward kernels dQ (B2) and dK/dV (B3) at the three path shapes
+       and a ragged D=128 shape, with a non-contiguous dO;
+   CUDA-event times of each kernel, its plain version and
+   F.scaled_dot_product_attention (forward, and backward for B2/B3; timed
+   only as the library yardstick; the port never calls it), and each
+   kernel's own device time from the profiler;
+4. the sampling slice through the user entry points: the full-width wide256
+   CondUNet with seeded random weights on every leaf, written as an exported
+   run dir and loaded back through superdiff_torch.inference.load_run:
    (a) superdiff_torch.cli.sample DDPM-1000 at 256², batch 16, label 0;
    (b) one denoiser call at batch 2, bf16 kernel path on the card against the
        float32 plain path on the CPU; then the denoiser call's time at batch
-       16 and a torch.profiler breakdown at batch 16 and 4 (device busy and
-       idle share, B1's share, top kernels and host ops);
+       16 and a torch.profiler breakdown at batch 16 and 4;
    (c) superdiff_torch.cli.sample SuperDiff OR and AND of two differently
        seeded wide256 models, batch 4, T=1000;
-   every run checks finite outputs and exactly 8 kernel launches per
+   every run checks finite outputs and exactly 8 forward launches per
    denoiser call;
-5. a JSON line per kernel shape, the card line, the kernels line, and last
+5. the training slice, full-width wide256 at 256², bf16 compute:
+   (a) one loss at batch 2: gradients through the kernels against gradients
+       through their plain versions on the card (relative L2 over all leaves,
+       and per leaf for every attention block's qkv and proj weights);
+   (b) superdiff_torch.cli.train --synthetic --device cuda at batch 16, 3
+       epochs of 10 optimizer steps (the first is warm-up): images per
+       second and ms per step of the last two, peak memory, validation loss
+       finite and falling on the fixed stream, exactly 8/8/8 launches of
+       B1/B2/B3 per train step and 8 of B1 per validation batch;
+   (c) a short leg with model.remat=true and training.grad_accum=2 (16 B1
+       launches per microbatch), and one in which this script swaps the
+       backward kernels for autograd of the plain softmax attention, for its
+       time only (the package has no such switch);
+   (d) a train step alone on a fixed batch: CUDA-event time and a
+       torch.profiler breakdown (device busy, idle share, B1+B2+B3 share);
+   (e) resume at batch 4: 2 steps + checkpoint + 2 steps against 4 straight
+       steps, every saved tensor bit for bit
+       (torch.backends.cudnn.deterministic=True);
+   (f) superdiff_torch.cli.export of the trained run, then cli.sample
+       (DDIM, 20 steps) from it: finite samples;
+6. a JSON line per kernel shape, the card line, the kernels line, and last
    the result line {"ok": true, "device": {...}}.
 
 float32 comparisons run with TF32 off (cudnn.allow_tf32=False, matmul
@@ -48,6 +71,9 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 KERNEL_SRC = "superdiff_torch/csrc/flash_attn_fwd.cu"
 TPU_KERNEL = "superdiff_tpu/ops/flash_attention.py:56"
+BWD_SRC = "superdiff_torch/csrc/flash_attn_bwd.cu"
+TPU_BWD_DQ = "superdiff_tpu/ops/flash_attention.py:189"
+TPU_BWD_DKV = "superdiff_tpu/ops/flash_attention.py:221"
 # H100 SXM peaks (NVIDIA data sheet): HBM, dense bf16 tensor core, f32 FMA;
 # SFU exponentials: 16 per clock per SM.
 HBM_BPS = 3.35e12
@@ -59,6 +85,20 @@ EXTRA_SHAPES = [(32, 1024, 4, 32), (2, 4096, 4, 64), (2, 1000, 2, 128)]
 TOL = {"bfloat16": dict(out=2e-2, lse=2e-3), "float32": dict(out=1e-4,
                                                               lse=1e-4)}
 SLICE_REL_TOL = 5e-2     # bf16 path vs float32 plain path, relative L2
+BWD_SHAPES = PATH_SHAPES + [(2, 1000, 2, 128)]
+# dQ/dK/dV against the plain version, relative to the gradient's largest
+# entry: bf16 rounds P, dS and the result (2^-8 each); f32 differs only in
+# summation order and exp2 vs exp.
+BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# model gradients, kernels vs plain versions (bf16): all leaves pooled, and
+# each attention block's qkv / proj weight on its own, so that a wrong dQ, dK
+# or dV at one level cannot hide in the global norm
+GRAD_REL_TOL = 1e-2
+ATTN_LEAF_REL_TOL = 2e-2
+FLASH_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                 "flash_bwd_dkv_kernel")
+WIDE256 = ["--set", "model.preset=wide256", "--set",
+           "training.resolution=256", "--set", "training.vis_every=0"]
 
 
 def log(msg):
@@ -89,8 +129,8 @@ def cuda_time_ms(fn, iters, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def kernel_device_ms(fn, iters=20):
-    """Device time of the flash kernel itself per call (profiler kernel
+def kernel_device_ms(fn, iters=20, kernel="flash_fwd_kernel"):
+    """Device time of the named kernel itself per call (profiler kernel
     events): at small shapes the CUDA-event time of back-to-back calls is
     set by the host wrapper's enqueue rate, not by the kernel."""
     import torch
@@ -105,17 +145,20 @@ def kernel_device_ms(fn, iters=20):
         torch.cuda.synchronize()
     us = sum(e.time_range.elapsed_us() for e in prof.events()
              if e.device_type == DeviceType.CUDA
-             and "flash_fwd_kernel" in e.name)
+             and kernel in e.name)
     return us / 1e3 / iters if us else "not measured"
 
 
-def bound(B, S, H, D, dtype, sm_clock_hz):
-    """Least time for the function: bytes (q, k, v read once, out and lse
-    written once), tensor/FMA flops, and exponentials on the SFUs."""
+def bound(B, S, H, D, dtype, sm_clock_hz, tensors=4, stats=1, products=2):
+    """Least time for the function: bytes (each (B,S,H,D) tensor and each
+    per-row f32 statistic moved once), tensor/FMA flops (2*S*S*D per head
+    and product), and exponentials on the SFUs. Defaults: the forward (q,
+    k, v, out; lse; 2 products). dQ: 5 tensors, lse and delta, 3 products;
+    dK/dV: 6 tensors, 4 products."""
     elt = 2 if dtype == "bfloat16" else 4
-    nbytes = 4 * B * S * H * D * elt + 4 * B * H * S
+    nbytes = tensors * B * S * H * D * elt + stats * 4 * B * H * S
     t_bytes = nbytes / HBM_BPS
-    t_flops = 4 * B * H * S * S * D / PEAK_FLOPS[dtype]
+    t_flops = 2 * products * B * H * S * S * D / PEAK_FLOPS[dtype]
     t_exp = B * H * S * S / (SFU_PER_CLK_PER_SM * NUM_SMS * sm_clock_hz)
     t = max(t_bytes, t_flops, t_exp)
     by = "bytes" if t == t_bytes else "operations"
@@ -171,6 +214,414 @@ def phase_kernels(fa, sm_clock_hz):
             rows[(B, S, H, D, dname)] = row
             log("kernel_check " + json.dumps(row))
     return rows
+
+
+def phase_bwd_kernels(fa, sm_clock_hz):
+    """dQ (B2) and dK/dV (B3) vs their plain versions at BWD_SHAPES."""
+    import torch
+    import torch.nn.functional as F
+
+    rows = {}
+    dev = torch.device("cuda")
+    for (B, S, H, D) in BWD_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).replace("torch.", "")
+            gen = torch.Generator(device=dev).manual_seed(B * S + D + 1)
+            fused = torch.randn((2, B, S, 3 * H * D), generator=gen,
+                                device=dev).to(dtype)
+            q, k, v = (a.view(B, S, H, D)
+                       for a in fused[0].split(H * D, dim=-1))
+            g = fused[1].split(H * D, dim=-1)[1].view(B, S, H, D)
+            if g.is_contiguous():
+                raise AssertionError("dO was meant to be a strided view")
+            out, lse = fa._flash_forward(q, k, v)
+            n_dq, n_dkv = fa.bwd_dq_launches, fa.bwd_dkv_launches
+            got = fa._flash_backward(q, k, v, out, lse, g)
+            torch.cuda.synchronize()
+            if (fa.bwd_dq_launches, fa.bwd_dkv_launches) != (n_dq + 1,
+                                                             n_dkv + 1):
+                raise AssertionError("backward launches were not counted")
+            ref = fa._flash_backward_plain(q, k, v, out, lse, g)
+            errs = {}
+            for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+                err = (a.float() - b.float()).abs().max().item()
+                peak = b.float().abs().max().item()
+                errs[name] = err
+                if not (torch.isfinite(a.float()).all()
+                        and err <= BWD_TOL[dname] * peak):
+                    raise AssertionError(
+                        f"{name} disagrees with plain at {(B, S, H, D)} "
+                        f"{dname}: err {err:.3e}, largest entry {peak:.3e}")
+            delta = fa._bwd_delta(out, g)
+            plain_iters = 10
+            qh, kh, vh = (a.transpose(1, 2).contiguous().requires_grad_()
+                          for a in (q, k, v))
+            oh = F.scaled_dot_product_attention(qh, kh, vh)
+            gh = g.transpose(1, 2).contiguous()
+            lib_ms = cuda_time_ms(lambda: torch.autograd.grad(
+                oh, (qh, kh, vh), gh, retain_graph=True), 30)
+            for kern, kname, launch, plain, shape_kw in (
+                    ("dq", "flash_bwd_dq_kernel", fa._flash_bwd_dq_cuda,
+                     fa._flash_bwd_dq_plain,
+                     dict(tensors=5, stats=2, products=3)),
+                    ("dkv", "flash_bwd_dkv_kernel", fa._flash_bwd_dkv_cuda,
+                     fa._flash_bwd_dkv_plain,
+                     dict(tensors=6, stats=2, products=4))):
+                call = lambda: launch(q, k, v, g, lse, delta)
+                ms = cuda_time_ms(call, 50)
+                dev_ms = kernel_device_ms(call, kernel=kname)
+                plain_ms = cuda_time_ms(
+                    lambda: plain(q, k, v, g, lse, delta), plain_iters)
+                b_ms, b_by, b_detail = bound(B, S, H, D, dname, sm_clock_hz,
+                                             **shape_kw)
+                err = errs["dq"] if kern == "dq" else max(errs["dk"],
+                                                          errs["dv"])
+                row = dict(kernel=kern, shape=[B, S, H, D], dtype=dname,
+                           max_abs_err=err, ms=ms, kernel_device_ms=dev_ms,
+                           plain_ms=plain_ms, library_ms=lib_ms,
+                           library="SDPA backward (dQ, dK and dV together)",
+                           bound_ms=b_ms, bound_by=b_by,
+                           bound_resource=b_detail, roofline_share=b_ms / ms)
+                rows[(kern, B, S, H, D, dname)] = row
+                log("bwd_kernel_check " + json.dumps(row))
+    return rows
+
+
+def flash_counts(fa):
+    return (fa.launches, fa.bwd_dq_launches, fa.bwd_dkv_launches)
+
+
+def run_train_cli(train_cli, work, run_id, batch, epochs, steps, extra=()):
+    """cli.train on full-width wide256 at 256² with the synthetic stream;
+    returns (run dir, summary dict, metrics.jsonl rows)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = train_cli.main([
+            "--synthetic", "--device", "cuda", "--experiment-id", "smoke",
+            "--run-id", run_id, *WIDE256,
+            "--set", f"training.batch_size={batch}",
+            "--set", f"training.num_epochs={epochs}",
+            "--set", f"training.steps_per_epoch={steps}",
+            "--set", "training.save_every=0",
+            "--set", "logging.stdout=false",
+            "--set", f"paths.local_base={work}",
+            "--set", f"paths.cluster_base={work}", *extra])
+    if rc != 0:
+        raise AssertionError(f"cli.train returned {rc}")
+    run_dir = os.path.join(work, "outputs", "PNEUMONIA",
+                           f"experiment_smoke_run_{run_id}")
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        metrics = [json.loads(line) for line in f]
+    return run_dir, metrics
+
+
+def epoch_rows(metrics, key):
+    return [m for m in metrics if key in m]
+
+
+def model_grad_check(fa, load_run, make_schedule, p_losses, run_dir):
+    """One wide256 loss at batch 2 (bf16 compute, random weights on every
+    leaf): parameter gradients through the kernels against gradients through
+    their plain versions, both on the card."""
+    import torch
+
+    _, model, schedule = load_run(run_dir, device="cuda")
+    model.train()
+    g = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn((2, 256, 256, 1), generator=g, device="cuda")
+    noise = torch.randn((2, 256, 256, 1), generator=g, device="cuda")
+    t = torch.tensor([700, 20], device="cuda")
+    y = torch.tensor([1, 2], device="cuda")
+    names, params = zip(*model.named_parameters())
+
+    def grads():
+        loss = p_losses(schedule, model, x, t, y=y, noise=noise)
+        return loss.item(), torch.autograd.grad(loss, params)
+
+    fa.reset_launches()
+    loss_k, g_kernel = grads()
+    if flash_counts(fa) != (8, 8, 8):
+        raise AssertionError(f"gradient check launched {flash_counts(fa)}, "
+                             "expected (8, 8, 8)")
+    kernels = (fa._flash_forward_cuda, fa._flash_backward_cuda)
+    fa._flash_forward_cuda = fa._flash_forward_plain
+    fa._flash_backward_cuda = fa._flash_backward_plain
+    try:
+        loss_p, g_plain = grads()
+    finally:
+        fa._flash_forward_cuda, fa._flash_backward_cuda = kernels
+    if flash_counts(fa) != (8, 8, 8):
+        raise AssertionError("the plain-version pass launched a kernel")
+    num = sum(((a.float() - b.float()) ** 2).sum() for a, b in
+              zip(g_kernel, g_plain)).sqrt().item()
+    den = sum((b.float() ** 2).sum() for b in g_plain).sqrt().item()
+    zero_leaves = sum(1 for b in g_plain if not b.abs().sum().item())
+    rel = num / den
+    if not (rel == rel and rel < GRAD_REL_TOL and zero_leaves == 0):
+        raise AssertionError(f"model gradients, kernels vs plain: rel L2 "
+                             f"{rel:.4e} (tolerance {GRAD_REL_TOL}), "
+                             f"{zero_leaves} leaves with zero gradient")
+    attn = {n: (torch.linalg.norm(a.float() - b.float())
+                / torch.linalg.norm(b.float())).item()
+            for n, a, b in zip(names, g_kernel, g_plain)
+            if n.endswith((".qkv.weight", ".proj.weight"))}
+    worst = max(attn, key=attn.get)
+    if len(attn) != 16 or not attn[worst] < ATTN_LEAF_REL_TOL:
+        raise AssertionError(f"attention leaves, kernels vs plain: "
+                             f"{len(attn)} leaves (expected 16), worst "
+                             f"{worst} rel L2 {attn[worst]:.4e} (tolerance "
+                             f"{ATTN_LEAF_REL_TOL})")
+    return dict(rel_l2=rel, loss_kernels=loss_k, loss_plain=loss_p,
+                leaves=len(params), attn_leaves=len(attn),
+                attn_leaf_worst=worst, attn_leaf_worst_rel_l2=attn[worst])
+
+
+def math_backward(q, k, v, o, lse, g):
+    """(dq, dk, dv) by autograd of the plain softmax attention: what the A/B
+    leg puts in the backward kernels' place."""
+    import torch
+
+    from superdiff_torch.ops.attention import _math_attention
+
+    with torch.enable_grad():
+        qkv = [a.detach().requires_grad_() for a in (q, k, v)]
+        return torch.autograd.grad(_math_attention(*qkv), qkv, g)
+
+
+def train_step_alone(fa, tcfg, model_from_config, make_schedule, training,
+                     synthetic_xray_batch, batch=16, timed=10, profiled=3):
+    """A train step on one fixed batch, through the package's own state and
+    step constructors: CUDA-event time per step, then a torch.profiler breakdown
+    (device busy, idle share, the flash kernels' share, top kernels)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = tcfg.load_config(None, [a for a in WIDE256 if a != "--set"])
+    model = model_from_config(cfg, device="cuda").init_parameters(0)
+    schedule = make_schedule(1000, device="cuda")
+    state = training.create_train_state(
+        model, torch.Generator(device="cuda").manual_seed(0))
+    step_fn = training.make_train_step(
+        schedule, conditional=True, cfg_drop_prob=0.1,
+        null_label=model.null_label)
+    imgs, labels = synthetic_xray_batch(batch, 256, seed=0)
+    data = {"image": torch.from_numpy(imgs).cuda(),
+            "label": torch.from_numpy(labels).long().cuda()}
+    for _ in range(3):
+        step_fn(state, data)
+    fa.reset_launches()
+    step_ms = cuda_time_ms(lambda: step_fn(state, data), timed, warmup=0)
+    if flash_counts(fa) != (8 * timed,) * 3:
+        raise AssertionError(f"{timed} train steps launched "
+                             f"{flash_counts(fa)}, expected 8 each per step")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tic = time.perf_counter()
+        for _ in range(profiled):
+            step_fn(state, data)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - tic) * 1e3 / profiled
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy_ms = sum(by_name.values()) / 1e3 / profiled
+    flash = {k: sum(v for n, v in by_name.items() if k in n) / 1e3 / profiled
+             for k in FLASH_KERNELS}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    n_aten = sum(a.count for a in prof.key_averages()
+                 if a.key.startswith("aten::"))
+    return dict(
+        batch=batch, step_ms_events=step_ms,
+        images_per_s_step_alone=batch / step_ms * 1e3,
+        wall_ms_per_step_profiled=wall_ms,
+        device_busy_ms_per_step=busy_ms if busy_ms else "not measured",
+        device_idle_share=(1 - busy_ms / wall_ms) if busy_ms else
+        "not measured",
+        flash_kernels_ms_per_step=flash,
+        flash_share_of_device=(sum(flash.values()) / busy_ms) if busy_ms
+        else "not measured",
+        aten_ops_per_step=n_aten / profiled,
+        kernels_per_step=sum(1 for e in prof.events()
+                             if e.device_type == DeviceType.CUDA) / profiled,
+        top_kernels_ms_per_step=[[k[:80], v / 1e3 / profiled]
+                                 for k, v in top])
+
+
+def phase_training(fa, work, run1, tcfg, model_from_config, load_run,
+                   sample):
+    """The training slice (phase 5 of the module docstring)."""
+    import numpy as np
+    import torch
+
+    from superdiff_torch import training
+    from superdiff_torch.checkpoint import load_checkpoint_file
+    from superdiff_torch.cli import export as export_cli
+    from superdiff_torch.cli import train as train_cli
+    from superdiff_torch.data.synthetic import synthetic_xray_batch
+    from superdiff_torch.diffusion import make_schedule
+    from superdiff_torch.diffusion.process import p_losses
+
+    out = {}
+    out["grad_check"] = model_grad_check(fa, load_run, make_schedule,
+                                         p_losses, run1)
+    log("phase 5a model gradients, kernels vs plain versions on the card: "
+        + json.dumps(out["grad_check"]))
+
+    # (b) the main training leg: 3 epochs x 10 steps at batch 16
+    B, EPOCHS, STEPS, VAL = 16, 3, 10, 2
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    tic = time.time()
+    main_dir, metrics = run_train_cli(
+        train_cli, work, "main", B, EPOCHS, STEPS,
+        ["--set", f"training.eval_batches={VAL}"])
+    main_s = time.time() - tic
+    counts = flash_counts(fa)
+    train_launches = dict(fwd=dict(fa.launches_by_shape),
+                          dq=dict(fa.bwd_dq_launches_by_shape),
+                          dkv=dict(fa.bwd_dkv_launches_by_shape))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_steps = EPOCHS * STEPS
+    expect = (8 * (n_steps + EPOCHS * VAL), 8 * n_steps, 8 * n_steps)
+    if counts != expect:
+        raise AssertionError(f"training launched (B1, B2, B3) = {counts}, "
+                             f"expected {expect}")
+    tr, va = epoch_rows(metrics, "avg_loss"), epoch_rows(metrics, "val_loss")
+    losses = [m["avg_loss"] for m in tr] + [m["val_loss"] for m in va]
+    if len(tr) != EPOCHS or len(va) != EPOCHS or not np.isfinite(losses).all():
+        raise AssertionError(f"training metrics incomplete or not finite: "
+                             f"{metrics}")
+    if not (va[-1]["val_loss"] < va[0]["val_loss"]
+            and tr[-1]["avg_loss"] < tr[0]["avg_loss"]):
+        raise AssertionError(f"loss did not fall: train {tr}, val {va}")
+    ips = [m["images_per_sec"] for m in tr[1:]]
+    out["train"] = dict(
+        batch=B, steps=n_steps, steps_after_warmup=(EPOCHS - 1) * STEPS,
+        images_per_s_by_epoch=[m["images_per_sec"] for m in tr],
+        images_per_s=float(np.mean(ips)),
+        ms_per_step=float(np.mean([B / v * 1e3 for v in ips])),
+        train_loss_by_epoch=[m["avg_loss"] for m in tr],
+        val_loss_by_epoch=[m["val_loss"] for m in va],
+        grad_norm_last=tr[-1]["grad_norm"], peak_mem_gb=peak_gb,
+        launches=dict(B1=counts[0], B2=counts[1], B3=counts[2]),
+        launches_by_shape={k: {str(s): n for s, n in v.items()}
+                           for k, v in train_launches.items()},
+        whole_leg_s=main_s)
+    log("phase 5b cli.train wide256 256² batch 16: "
+        + json.dumps(out["train"]))
+
+    # (c) remat + grad_accum=2, then the math backward, for their times
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    _, m_remat = run_train_cli(
+        train_cli, work, "remat", B, 2, 4,
+        ["--set", "model.remat=true", "--set", "training.grad_accum=2",
+         "--set", "training.eval_every=0"])
+    counts = flash_counts(fa)
+    if counts != (32 * 8, 16 * 8, 16 * 8):
+        raise AssertionError(f"remat + grad_accum=2 launched {counts} in 8 "
+                             "steps, expected (256, 128, 128)")
+    tr = epoch_rows(m_remat, "avg_loss")
+    out["remat_accum2"] = dict(
+        batch=B, ms_per_step=B / tr[-1]["images_per_sec"] * 1e3,
+        images_per_s=tr[-1]["images_per_sec"],
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        launches_per_step=dict(B1=32, B2=16, B3=16),
+        train_loss_by_epoch=[m["avg_loss"] for m in tr])
+    log("phase 5c remat + grad_accum=2: " + json.dumps(out["remat_accum2"]))
+    fa.reset_launches()
+    kernel_backward = fa._flash_backward_cuda
+    fa._flash_backward_cuda = math_backward
+    try:
+        _, m_math = run_train_cli(train_cli, work, "mathbwd", B, 2, 10,
+                                  ["--set", "training.eval_every=0"])
+    finally:
+        fa._flash_backward_cuda = kernel_backward
+    if flash_counts(fa) != (160, 0, 0):
+        raise AssertionError(f"math-backward leg launched "
+                             f"{flash_counts(fa)}, expected (160, 0, 0)")
+    tr = epoch_rows(m_math, "avg_loss")
+    out["math_backward"] = dict(
+        batch=B, ms_per_step=B / tr[-1]["images_per_sec"] * 1e3,
+        images_per_s=tr[-1]["images_per_sec"])
+    log("phase 5c math backward (time only): "
+        + json.dumps(out["math_backward"]))
+
+    # (d) a train step alone, timed and profiled
+    out["step_profile"] = train_step_alone(
+        fa, tcfg, model_from_config, make_schedule, training,
+        synthetic_xray_batch)
+    log("train_profile " + json.dumps(out["step_profile"]))
+    torch.cuda.empty_cache()
+
+    # (e) resume: 2 + 2 steps against 4 straight, bit for bit
+    torch.backends.cudnn.deterministic = True
+    try:
+        straight, _ = run_train_cli(train_cli, work, "straight", 4, 2, 2,
+                                    ["--set", "training.eval_every=0"])
+        run_train_cli(train_cli, work, "resumed", 4, 1, 2,
+                      ["--set", "training.eval_every=0"])
+        resumed, _ = run_train_cli(train_cli, work, "resumed", 4, 2, 2,
+                                   ["--set", "training.eval_every=0"])
+    finally:
+        torch.backends.cudnn.deterministic = False
+    a = load_checkpoint_file(os.path.join(straight, "checkpoints"), 4)
+    b = load_checkpoint_file(os.path.join(resumed, "checkpoints"), 4)
+    n_cmp = 0
+    for part in ("params", "ema_params"):
+        for key in a[part]:
+            n_cmp += 1
+            if not torch.equal(a[part][key], b[part][key]):
+                raise AssertionError(f"resume differs in {part}/{key}")
+    for part in ("mu", "nu"):
+        for i, (x, y) in enumerate(zip(a["opt_state"][part],
+                                       b["opt_state"][part])):
+            n_cmp += 1
+            if not torch.equal(x, y):
+                raise AssertionError(f"resume differs in Adam {part}[{i}]")
+    if not (all(torch.equal(a["rng"][k], b["rng"][k]) for k in a["rng"])
+            and a["step"] == b["step"] == 4
+            and a["opt_state"]["count"] == b["opt_state"]["count"] == 4):
+        raise AssertionError("resume differs in rng, step or Adam count")
+    moved = sum(1 for k, v in a["params"].items()
+                if not torch.equal(v, a["ema_params"][k]))
+    if not moved:
+        raise AssertionError("parameters and EMA are identical after 4 steps")
+    out["resume"] = dict(steps="2+2 vs 4", batch=4, tensors_equal=n_cmp,
+                         bit_exact=True)
+    log("phase 5e resume: " + json.dumps(out["resume"]))
+
+    # (f) export the trained run and sample from it
+    exported = os.path.join(work, "exported")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = export_cli.main(["--run-dir", main_dir, "--out", exported,
+                              "--device", "cuda"])
+    log(buf.getvalue().rstrip())
+    if rc != 0:
+        raise AssertionError(f"cli.export returned {rc}")
+    out_f = os.path.join(work, "trained_samples")
+    fa.reset_launches()
+    secs = run_cli(sample, [
+        "--run-dir", exported, "--method", "ddim", "--num-steps", "20",
+        "--batch-size", "4", "--label", "1", "--seed", "3", "--out", out_f,
+        "--device", "cuda"])
+    check_launches(fa, 20, "DDIM-20 from the trained run")
+    xs = np.load(os.path.join(out_f, "samples.npy"))
+    if xs.shape != (4, 256, 256, 1) or not np.isfinite(xs).all():
+        raise AssertionError(f"samples from the trained run {xs.shape} not "
+                             "finite/shaped")
+    out["trained_sample"] = dict(method="ddim", steps=20, batch=4,
+                                 s_per_batch=secs,
+                                 abs_max=float(np.abs(xs).max()))
+    log("phase 5f export + DDIM-20 from the trained run: "
+        + json.dumps(out["trained_sample"]))
+    return out, train_launches
 
 
 def write_run(path, seed, fp, tcfg, model_from_config):
@@ -231,7 +682,7 @@ def profile_denoiser(model, batch, calls=5):
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     busy_ms = sum(by_name.values()) / 1e3 / calls
     flash_ms = sum(v for k, v in by_name.items()
-                   if "flash_fwd_kernel" in k) / 1e3 / calls
+                   if FLASH_KERNELS[0] in k) / 1e3 / calls
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     cpu_ops = sorted(((a.key, a.self_cpu_time_total, a.count)
                       for a in prof.key_averages()
@@ -289,12 +740,17 @@ def main() -> int:
     from superdiff_torch.ops import flash_attention as fa
 
     tic = time.time()
-    so = fa.build(verbose=True)
+    sos = fa.build_all(verbose=True)
     build_s = time.time() - tic
-    log(f"phase 2 build: {so.name} in {build_s:.3f} s")
+    log(f"phase 2 build: {sorted(so.name for so in sos.values())} in "
+        f"{build_s:.3f} s (one nvcc per source, started together)")
 
     rows = phase_kernels(fa, sm_clock_hz)
-    log(f"phase 3 kernel checks: {len(rows)} shape/dtype cases agree")
+    log(f"phase 3a forward kernel checks: {len(rows)} shape/dtype cases "
+        "agree")
+    bwd_rows = phase_bwd_kernels(fa, sm_clock_hz)
+    log(f"phase 3b backward kernel checks: {len(bwd_rows)} kernel/shape/"
+        "dtype cases agree")
 
     work = tempfile.mkdtemp(prefix="superdiff_smoke_")
     run1, run2 = os.path.join(work, "run1"), os.path.join(work, "run2")
@@ -376,7 +832,10 @@ def main() -> int:
         log(f"phase 4c SuperDiff {mode.upper()} T=1000 batch 4: {secs:.3f} s,"
             f" logq gap mean {lq['logq_gap_mean']:.4f}")
 
-    summary = dict(card=card_line, build_s=build_s,
+    training_out, train_launches = phase_training(
+        fa, work, run1, tcfg, model_from_config, load_run, sample)
+
+    summary = dict(card=card_line, build_s=build_s, training=training_out,
                    ddpm1000_batch16_s=ddpm_s, denoiser_ms_batch16=step_ms,
                    slice_rel_l2_bf16_vs_f32=rel, superdiff=superdiff,
                    profiles=profiles, ddpm_peak_mem_gb=ddpm_peak_gb,
@@ -390,11 +849,26 @@ def main() -> int:
             name=f"flash_attn_fwd[bf16 B{B} S{S} H{H} D{D}]", route="cuda",
             source=KERNEL_SRC, replaces=TPU_KERNEL,
             launches=main_launches.get((S, D, "bfloat16"), 0),
+            train_launches=train_launches["fwd"].get((S, D, "bfloat16"), 0),
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"]))
-        if kernels[-1]["launches"] == 0:
+        if not (kernels[-1]["launches"] and kernels[-1]["train_launches"]):
             raise AssertionError(f"path shape {(B, S, H, D)} never launched")
+    for kern, name, replaces in (("dq", "flash_attn_bwd_dq", TPU_BWD_DQ),
+                                 ("dkv", "flash_attn_bwd_dkv", TPU_BWD_DKV)):
+        for (B, S, H, D) in PATH_SHAPES:
+            row = bwd_rows[(kern, B, S, H, D, "bfloat16")]
+            kernels.append(dict(
+                name=f"{name}[bf16 B{B} S{S} H{H} D{D}]", route="cuda",
+                source=BWD_SRC, replaces=replaces,
+                launches=train_launches[kern].get((S, D, "bfloat16"), 0),
+                max_abs_err=row["max_abs_err"], ms=row["ms"],
+                plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                bound_by=row["bound_by"], library_ms=row["library_ms"]))
+            if kernels[-1]["launches"] == 0:
+                raise AssertionError(f"{name} never launched at path shape "
+                                     f"{(B, S, H, D)} in training")
     print(card_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """superdiff_torch — the PyTorch/CUDA port of superdiff_tpu for NVIDIA Hopper.
 
 Same layout and function names as the JAX package (``diffusion/``,
-``models/``, ``ops/``, ``compat/``, ``cli/``, ``config.py``,
-``inference.py``); PyTorch idiom inside (``nn.Module``s, explicit
+``models/``, ``ops/``, ``data/``, ``training/``, ``utils/``, ``compat/``,
+``cli/``, ``config.py``, ``checkpoint.py``, ``inference.py``); PyTorch idiom
+inside (``nn.Module``s, explicit
 ``device=`` arguments that default to ``"cuda"``, explicit
 ``torch.Generator``s). Public tensors keep the JAX layout: images NHWC
 ``(B, H, W, C)``, attention ``(B, S, H, D)``, integer labels.

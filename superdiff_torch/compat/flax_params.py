@@ -13,7 +13,8 @@ Module paths map one to one (``down_0_block_0/conv_0`` <->
 names. Also a numpy-only reader and writer for the ``ema_params.npz``
 export format of ``superdiff_tpu/cli/export.py``: flattened ``a/b/c`` keys,
 with bfloat16 arrays stored as their uint16 bit pattern under a
-``bf16:``-prefixed key.
+``bf16:``-prefixed key; and the two-way bridge between a JAX ``TrainState``
+given as numpy arrays and the port's ``TrainState``.
 """
 
 from __future__ import annotations
@@ -164,6 +165,61 @@ def load_state_dict(model: torch.nn.Module, params: Mapping) -> None:
             + ", ".join(f"{k} {tuple(sd[k].shape)} vs {tuple(own[k].shape)}"
                         for k in bad[:8]))
     model.load_state_dict(sd, strict=True)
+
+
+def to_flax(model: torch.nn.Module,
+            state_dict: Mapping = None) -> Dict[str, Any]:
+    """``model``'s parameters (or another ``state_dict`` with its keys) as a
+    Flax-layout tree of float32 numpy arrays: the inverse of
+    :func:`from_flax`."""
+    embeds = frozenset(n for n, m in model.named_modules()
+                       if isinstance(m, torch.nn.Embedding))
+    flat = {}
+    for key, t in (state_dict or model.state_dict()).items():
+        path, perm = flax_path(key, t.ndim, embeds)
+        a = t.detach().float().cpu()
+        flat[path] = (a.permute(*perm) if perm else a).contiguous().numpy()
+    return _unflatten(flat)
+
+
+def _leaf_list(model: torch.nn.Module, tree: Mapping) -> list:
+    """A Flax-layout tree as tensors in ``model.parameters()`` order and the
+    torch layout."""
+    sd = from_flax(tree)
+    return [sd[name] for name, _ in model.named_parameters()]
+
+
+def _leaf_tree(model: torch.nn.Module, tensors) -> Dict[str, Any]:
+    return to_flax(model, {name: t for (name, _), t in
+                           zip(model.named_parameters(), tensors)})
+
+
+def train_state_from_numpy(state, arrays: Mapping) -> None:
+    """Load a JAX ``TrainState`` given as numpy arrays into the port's
+    ``TrainState`` ``state``, in place: ``params`` and ``ema_params`` (Flax
+    trees), the Adam part of the optax state as ``mu`` / ``nu`` (Flax trees)
+    and ``count``, and ``step``. For ``chain(clip_by_global_norm, adam)`` the
+    optax state is a tuple: pass its Adam element's fields. The generator
+    has no counterpart across frameworks and is left alone."""
+    load_state_dict(state.model, arrays["params"])
+    load_state_dict(state.ema_model, arrays["ema_params"])
+    with torch.no_grad():
+        for name in ("mu", "nu"):
+            for dst, src in zip(state.opt_state[name],
+                                _leaf_list(state.model, arrays[name])):
+                dst.copy_(src)
+    state.opt_state["count"] = int(arrays["count"])
+    state.step = int(arrays["step"])
+
+
+def train_state_to_numpy(state) -> Dict[str, Any]:
+    """The inverse of :func:`train_state_from_numpy`."""
+    return {"params": to_flax(state.model),
+            "ema_params": to_flax(state.ema_model),
+            "mu": _leaf_tree(state.model, state.opt_state["mu"]),
+            "nu": _leaf_tree(state.model, state.opt_state["nu"]),
+            "count": int(state.opt_state["count"]),
+            "step": int(state.step)}
 
 
 # ----------------------------------------------------------------- npz I/O

@@ -3,8 +3,9 @@
 Port of ``superdiff_tpu/inference.py``. A torch model carries its own
 weights, so where the JAX functions take ``(model, params)`` these take the
 module. ``load_run`` reads exported inference artifacts (``config.yaml`` +
-``ema_params.npz``, the ``cli/export.py`` format); loading Orbax training
-checkpoints is not ported yet.
+``ema_params.npz``, the ``cli/export.py`` format of either package) and the
+port's own training run dirs (``config.yaml`` + ``checkpoints/``); Orbax
+training checkpoints of the JAX package need exporting first.
 """
 
 from __future__ import annotations
@@ -73,11 +74,20 @@ def _to_channels_last(model):
     return model
 
 
-def load_run(run_dir: str, device="cuda") -> Tuple[
+def load_run(run_dir: str, device="cuda", step: Optional[int] = None,
+             best: bool = False) -> Tuple[
         Config, torch.nn.Module, DiffusionSchedule]:
     """Load ``(cfg, model, schedule)`` from an exported inference artifact
-    (``config.yaml`` + ``ema_params.npz``): the model holds the EMA weights
-    (float32) on ``device``, in eval mode."""
+    (``config.yaml`` + ``ema_params.npz``) or from one of the port's training
+    run dirs (``config.yaml`` + ``checkpoints/``): the model holds the EMA
+    weights (float32) on ``device``, in eval mode.
+
+    ``step`` picks a checkpoint other than the latest; ``best=True`` loads the
+    best-validation checkpoint the training loop tags
+    (``<checkpoint_dir>_best``)."""
+    from superdiff_torch.checkpoint import (
+        CheckpointManager, load_checkpoint_file)
+
     cfg_path = os.path.join(run_dir, "config.yaml")
     if not os.path.exists(cfg_path):
         raise FileNotFoundError(f"no config.yaml in {run_dir}")
@@ -87,11 +97,29 @@ def load_run(run_dir: str, device="cuda") -> Tuple[
                            "available (pass device='cpu' explicitly)")
     cfg = load_config(cfg_path)
     export_path = os.path.join(run_dir, EXPORT_FILE)
-    if not os.path.exists(export_path):
-        raise NotImplementedError(
-            f"{run_dir} has no {EXPORT_FILE}; loading Orbax training "
-            "checkpoints is not ported yet (export the run with "
-            "superdiff_tpu.cli.export first)")
+    ckpt_dir = os.path.join(run_dir, cfg.paths.checkpoint_dir)
+    if best:
+        if not os.path.isdir(ckpt_dir + "_best"):
+            raise FileNotFoundError(
+                f"no best-val checkpoint in {run_dir} (train with "
+                "training.eval_every > 0 to tag one)")
+        ckpt_dir += "_best"
+    from_export = os.path.exists(export_path) and not os.path.isdir(ckpt_dir)
+    if from_export and step is not None:
+        raise ValueError(
+            f"{run_dir} is an exported inference artifact holding one "
+            "snapshot; --step is only meaningful on a training run dir")
+    if not from_export:
+        steps = (CheckpointManager(ckpt_dir).all_steps()
+                 if os.path.isdir(ckpt_dir) else [])
+        if not steps:
+            raise NotImplementedError(
+                f"{run_dir} has no {EXPORT_FILE} and no superdiff_torch "
+                "checkpoint; loading Orbax training checkpoints is not "
+                "ported (export the run with superdiff_tpu.cli.export first)")
+        if step is not None and step not in steps:
+            raise FileNotFoundError(f"no checkpoint for step {step} in "
+                                    f"{ckpt_dir} (have {steps})")
     t = cfg.training
     schedule = make_schedule(t.num_timesteps, kind=t.schedule,
                              beta_start=t.beta_start, beta_end=t.beta_end,
@@ -100,7 +128,12 @@ def load_run(run_dir: str, device="cuda") -> Tuple[
                               else device)
     if device.type == "cuda":
         model = model.to_empty(device=device)
-    load_state_dict(model, load_exported_params(export_path))
+    if from_export:
+        load_state_dict(model, load_exported_params(export_path))
+    else:
+        saved = load_checkpoint_file(ckpt_dir,
+                                     steps[-1] if step is None else step)
+        model.load_state_dict(saved["ema_params"], strict=True)
     model = _to_channels_last(model.float().eval())
     return cfg, model, schedule
 

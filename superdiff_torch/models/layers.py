@@ -117,15 +117,17 @@ class ResBlock(nn.Module):
 
     ``norm_0 -> SiLU -> conv_0``, FiLM from ``emb_proj(SiLU(emb))`` after
     ``norm_1``, ``SiLU -> conv_1`` (zero-initialised), 1x1 ``skip_proj`` when
-    the channel count changes. Inference only: dropout is not applied.
+    the channel count changes. ``dropout > 0`` drops activations between the
+    second SiLU and ``conv_1`` in ``train()`` mode only.
     """
 
     def __init__(self, in_channels: int, out_channels: int, emb_dim: int,
                  compute_dtype=torch.float32, groups: int = 32,
-                 norm_dtype=torch.float32, device=None):
+                 norm_dtype=torch.float32, dropout: float = 0.0, device=None):
         super().__init__()
         self.compute_dtype = compute_dtype
         self.norm_dtype = norm_dtype
+        self.dropout = dropout
         self.norm_0 = GroupNorm(num_groups_for(in_channels, groups),
                                 in_channels, device=device)
         self.conv_0 = nn.Conv2d(in_channels, out_channels, 3, device=device)
@@ -151,6 +153,8 @@ class ResBlock(nn.Module):
         h = (h * (1.0 + scale.to(nd)[:, None, None, :])
              + shift.to(nd)[:, None, None, :])
         h = F.silu(h).to(cd)
+        if self.dropout > 0.0:
+            h = F.dropout(h, self.dropout, training=self.training)
         h = conv_nhwc(self.conv_1, h, cd)
         if self.skip_proj is not None:
             x = conv_nhwc(self.skip_proj, x, cd)

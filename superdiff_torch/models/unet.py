@@ -25,6 +25,7 @@ from typing import Optional, Sequence, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from superdiff_torch.models.layers import (
     Downsample, GroupNorm, ResBlock, SelfAttention2D, TimeEmbeddingMLP,
@@ -67,8 +68,9 @@ class CondUNet(nn.Module):
         self.compute_dtype = compute_dtype
         self.norm_dtype = norm_dtype
         self.parameterization = parameterization
-        # dropout and remat only act in training, which is a later port
-        # slice; they are kept as configuration so configs round-trip.
+        # Both act only in train() mode: dropout inside each ResBlock, and
+        # remat recomputes each ResBlock and attention block in the backward
+        # (torch.utils.checkpoint) and keeps only the block's inputs.
         self.dropout, self.remat = dropout, remat
 
         n_levels = len(channel_mults)
@@ -84,7 +86,7 @@ class CondUNet(nn.Module):
         cd, nd = compute_dtype, norm_dtype
         emb_dim = time_emb_dim * 4
         res_kw = dict(emb_dim=emb_dim, compute_dtype=cd, groups=groups,
-                      norm_dtype=nd, device=device)
+                      norm_dtype=nd, dropout=dropout, device=device)
         attn_kw = dict(num_heads=num_heads, compute_dtype=cd, norm_dtype=nd,
                        device=device)
 
@@ -162,12 +164,47 @@ class CondUNet(nn.Module):
         """Label index meaning "unconditional" (classifier-free guidance)."""
         return self.num_classes
 
+    @torch.no_grad()
+    def init_parameters(self, seed: int = 0) -> "CondUNet":
+        """Initialise for training with the Flax module's distributions:
+        conv and dense kernels LeCun-normal (truncated at 2 sigma, variance
+        1/fan_in), the embedding N(0, 1/dim), biases 0, norm scales 1, and
+        ``conv_1`` / ``proj`` / ``out_conv`` kernels 0. Values are drawn on
+        the CPU from ``seed`` so they do not depend on the device."""
+        g = torch.Generator().manual_seed(seed)
+        for name, m in self.named_modules():
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
+                leaf = name.rsplit(".", 1)[-1]
+                w = torch.zeros(m.weight.shape)
+                if leaf not in ("conv_1", "proj", "out_conv"):
+                    std = (w[0].numel() ** -0.5) / 0.87962566103423978
+                    nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
+                                          generator=g)
+                m.weight.copy_(w)
+                m.bias.zero_()
+            elif isinstance(m, nn.Embedding):
+                w = torch.randn(m.weight.shape, generator=g)
+                m.weight.copy_(w * m.weight.shape[1] ** -0.5)
+            elif isinstance(m, GroupNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+        return self
+
     def set_norm_dtype(self, dtype: torch.dtype) -> "CondUNet":
         """Set the norm-pass dtype of every layer (the inference policy)."""
         for m in self.modules():
             if hasattr(m, "norm_dtype"):
                 m.norm_dtype = dtype
         return self
+
+    def _block(self, name: str, *args) -> torch.Tensor:
+        """Run a ResBlock or attention block, rematerialised in training
+        when ``remat`` is set (``nn.remat`` in the JAX package). The
+        non-reentrant checkpoint replays dropout's generator state."""
+        block = getattr(self, name)
+        if self.remat and self.training and torch.is_grad_enabled():
+            return checkpoint(block, *args, use_reentrant=False)
+        return block(*args)
 
     def forward(self, x: torch.Tensor, t: torch.Tensor,
                 y: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -191,23 +228,23 @@ class CondUNet(nn.Module):
         skips = [h]
         for kind, name, attn in self._down:
             if kind == "res":
-                h = getattr(self, name)(h, emb)
+                h = self._block(name, h, emb)
                 if attn is not None:
-                    h = getattr(self, attn)(h)
+                    h = self._block(attn, h)
             else:
                 h = getattr(self, name)(h)
             skips.append(h)
 
-        h = self.mid_block_0(h, emb)
-        h = self.mid_attn(h)
-        h = self.mid_block_1(h, emb)
+        h = self._block("mid_block_0", h, emb)
+        h = self._block("mid_attn", h)
+        h = self._block("mid_block_1", h, emb)
 
         for kind, name, attn in self._up:
             if kind == "res":
                 h = torch.cat([h, skips.pop().to(cd)], dim=-1)
-                h = getattr(self, name)(h, emb)
+                h = self._block(name, h, emb)
                 if attn is not None:
-                    h = getattr(self, attn)(h)
+                    h = self._block(attn, h)
             else:
                 h = getattr(self, name)(h)
         assert not skips

@@ -1,4 +1,4 @@
-"""Attention ops: the hand-written CUDA flash-attention forward
+"""Attention ops: the hand-written CUDA flash-attention forward and backward
 (``ops/flash_attention.py``) and the dispatching ``multihead_attention``."""
 
 from superdiff_torch.ops.attention import multihead_attention  # noqa: F401

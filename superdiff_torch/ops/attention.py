@@ -11,6 +11,11 @@ else runs :func:`_math_attention`. The JAX package's ``S >= 1024``
 threshold was a TPU v5e measurement and is not carried over: on the card
 the kernel also takes the 16² (S=256) and 8² (S=64) levels.
 
+Gradients: when autograd records and q, k or v needs a gradient, the flash
+call goes through ``FlashAttentionFn`` (forward kernel, then the dQ and
+dK/dV kernels in the backward), so ``out``/``lse`` are kept only when a
+backward will run. :func:`_math_attention` is plain differentiable torch.
+
 Numerics: scores accumulate in float32 regardless of input dtype.
 """
 

@@ -211,13 +211,67 @@ def test_config_writer_round_trips(tmp_path):
             == dataclasses.asdict(jcfg.load_config(jpath)))
 
 
+def test_train_state_round_trip_through_numpy():
+    """A JAX ``TrainState`` given as numpy arrays (params, EMA, the Adam part
+    of ``chain(clip_by_global_norm, adam)``, step) -> the port's TrainState
+    -> numpy again, bit for bit; the port's tensors hold the torch layout."""
+    import jax
+    import jax.numpy as jnp
+
+    from superdiff_tpu.models.unet import CondUNet as JaxCondUNet
+    from superdiff_tpu.training.state import make_optimizer as j_make_optimizer
+    from superdiff_torch.models.unet import CondUNet
+    from superdiff_torch.training.state import create_train_state
+
+    kw = dict(base_channels=8, channel_mults=(1, 2), num_res_blocks=1,
+              attn_resolutions=(8,), num_heads=2, num_classes=2,
+              time_emb_dim=16, groups=4)
+    jm = JaxCondUNet(**kw)
+    shapes = jax.eval_shape(
+        jm.init, jax.random.PRNGKey(0), jnp.zeros((1, 16, 16, 1)),
+        jnp.zeros((1,), jnp.int32), jnp.zeros((1,), jnp.int32))
+    params = {"params": fp.random_params(shapes, 1)}
+    ema = {"params": fp.random_params(shapes, 2)}
+    tx = j_make_optimizer(grad_clip_norm=1.0)
+    opt_state = tx.init(params)
+    assert isinstance(opt_state, tuple)          # (clip state, adam states)
+    adam = opt_state[1][0]._replace(
+        count=jnp.asarray(7, jnp.int32),
+        mu={"params": fp.random_params(shapes, 3)},
+        nu={"params": fp.random_params(shapes, 4)})
+    arrays = {"params": params, "ema_params": ema, "mu": adam.mu,
+              "nu": adam.nu, "count": int(adam.count), "step": 7}
+
+    st = create_train_state(CondUNet(resolution=16, device="cpu", **kw),
+                            torch.Generator().manual_seed(0))
+    rng_before = st.generator.get_state().clone()
+    fp.train_state_from_numpy(st, arrays)
+    assert st.step == 7 and st.opt_state["count"] == 7
+    assert torch.equal(st.generator.get_state(), rng_before)
+    names = [n for n, _ in st.model.named_parameters()]
+    i = names.index("stem.weight")
+    np.testing.assert_array_equal(
+        st.opt_state["mu"][i].numpy(),
+        np.transpose(adam.mu["params"]["stem"]["kernel"], (3, 2, 0, 1)))
+    assert not torch.equal(st.params[i], st.ema_params[i])
+    back = fp.train_state_to_numpy(st)
+    assert back["count"] == 7 and back["step"] == 7
+    for name in ("params", "ema_params", "mu", "nu"):
+        got, want = fp._flatten(back[name]), fp._flatten(
+            arrays[name]["params"])
+        assert set(got) == set(want)
+        for path in got:
+            np.testing.assert_array_equal(got[path], want[path])
+
+
 def test_port_imports_without_jax(tmp_path):
     """Every superdiff_torch module (and chip_smoke.py) imports, and the toy
-    CondUNet runs on CPU, with jax, flax and superdiff_tpu blocked."""
+    CondUNet runs on CPU, with jax, flax, optax, orbax and superdiff_tpu
+    blocked; the training, checkpoint and CLI modules are among them."""
     script = textwrap.dedent(f"""
         import importlib, pkgutil, sys
-        BLOCK = ("jax", "jaxlib", "flax", "superdiff_tpu", "ml_dtypes",
-                 "yaml")
+        BLOCK = ("jax", "jaxlib", "flax", "optax", "orbax", "superdiff_tpu",
+                 "ml_dtypes", "yaml")
         class Blocker:
             def find_spec(self, name, path=None, target=None):
                 if name.split(".")[0] in BLOCK:
@@ -239,6 +293,9 @@ def test_port_imports_without_jax(tmp_path):
             out = m(torch.zeros(2, 16, 16, 1), torch.tensor([1, 2]),
                     torch.tensor([0, 2]))
         assert out.shape == (2, 16, 16, 1)
+        for m in ("training.loop", "training.steps", "checkpoint",
+                  "cli.train", "cli.export", "data.transforms"):
+            assert "superdiff_torch." + m in mods, m
         bad = [n for n in sys.modules if n.split(".")[0] in BLOCK]
         assert not bad, bad
         print("ok", len(mods))
