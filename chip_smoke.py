@@ -8,25 +8,31 @@ Run from the root of a checkout, with no arguments:
 Phases (any failure raises and exits non-zero; nothing is skipped):
 
 1. device: require CUDA; print the card's name and power limit;
-2. build: compile both kernel sources (csrc/flash_attn_fwd.cu and
-   csrc/flash_attn_bwd.cu), one nvcc each, started together; print the build
-   time and the ptxas reports;
+2. build: compile the three kernel sources (csrc/flash_attn_fwd.cu,
+   csrc/flash_attn_bwd.cu, csrc/group_norm_silu.cu), one nvcc each, started
+   together; print the build time and the ptxas reports;
 3. kernels vs their plain versions on the card, bf16 and f32:
    (a) the forward (B1) at the path's shapes (batch 16, and the CFG 2B batch)
        and at shapes with several K tiles, a ragged edge and D=128;
    (b) the backward kernels dQ (B2) and dK/dV (B3) at the three path shapes
        and a ragged D=128 shape, with a non-contiguous dO;
-   CUDA-event times of each kernel, its plain version and
-   F.scaled_dot_product_attention (forward, and backward for B2/B3; timed
-   only as the library yardstick; the port never calls it), and each
-   kernel's own device time from the profiler;
+   (c) the fused GroupNorm+FiLM+SiLU (B4) at the RefUNet's batch-16 shapes
+       (C, G) = (1, 1), (64, 4), (128, 4), FiLM cases, group widths 3 and
+       12, a ragged 7x9 image; a rerun must give the same bits;
+   CUDA-event times of each kernel, its plain version and the library
+   yardstick (F.scaled_dot_product_attention forward / backward for B1-B3;
+   F.group_norm + F.silu for B4; timed only as yardsticks, the port never
+   calls them), and each kernel's own device time from the profiler;
 4. the sampling slice through the user entry points: the full-width wide256
    CondUNet with seeded random weights on every leaf, written as an exported
    run dir and loaded back through superdiff_torch.inference.load_run:
    (a) superdiff_torch.cli.sample DDPM-1000 at 256², batch 16, label 0;
    (b) one denoiser call at batch 2, bf16 kernel path on the card against the
        float32 plain path on the CPU; then the denoiser call's time at batch
-       16 and a torch.profiler breakdown at batch 16 and 4;
+       16 and a torch.profiler breakdown at batch 16 and 4; then every
+       GroupNorm->(FiLM)->SiLU chain of one batch-16 call, counted by shape
+       and timed against B4 on the same inputs (a measurement for a later
+       decision; the CondUNet does not call B4);
    (c) superdiff_torch.cli.sample SuperDiff OR and AND of two differently
        seeded wide256 models, batch 4, T=1000;
    every run checks finite outputs and exactly 8 forward launches per
@@ -51,11 +57,29 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
        (torch.backends.cudnn.deterministic=True);
    (f) superdiff_torch.cli.export of the trained run, then cli.sample
        (DDIM, 20 steps) from it: finite samples;
-6. a JSON line per kernel shape, the card line, the kernels line, and last
+6. the reference-model slice, full-width RefUNet (base 64, 256², float32):
+   two reference-layout checkpoints (this script's torch rebuild of the
+   reference UNet, seeds 1 and 2, saved as ema_epoch1.pt) through
+   superdiff_torch.cli.import_torch, then
+   (a) cli.sample DDPM-1000 at batch 16: finite, exactly 10 B4 launches per
+       denoiser call and no B1;
+   (b) one call at batch 2, B4 against the plain version on the card, and
+       the same call bit-equal with PyTorch's cuDNN TF32 off and on (the
+       RefUNet pins its convolutions to IEEE float32 itself); the call's
+       time at batch 16 and a profile (device busy, idle, B4 share);
+   (c) cli.sample SuperDiff OR of the two runs (TB x PNEUMONIA), batch 4,
+       T=1000: finite samples and logq;
+   (d) one wide256 call: 0 B4 launches (the CondUNet is untouched);
+   (e) cli.train --synthetic on model.preset=ref, batch 4: loss finite and
+       falling, 10 B4 launches per step and per validation batch; gradients
+       of one loss at batch 2 with B4 against the plain version;
+   these legs run under PyTorch's default (cuDNN TF32 on), as a user's
+   CLI run does; the RefUNet's convolutions ignore it;
+7. a JSON line per kernel shape, the card line, the kernels line, and last
    the result line {"ok": true, "device": {...}}.
 
 float32 comparisons run with TF32 off (cudnn.allow_tf32=False, matmul
-precision "highest").
+precision "highest"); phase 6 turns cuDNN's TF32 back on, PyTorch's default.
 """
 
 import contextlib
@@ -99,6 +123,26 @@ FLASH_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
                  "flash_bwd_dkv_kernel")
 WIDE256 = ["--set", "model.preset=wide256", "--set",
            "training.resolution=256", "--set", "training.vis_every=0"]
+GN_SRC = "superdiff_torch/csrc/group_norm_silu.cu"
+TPU_GN = "superdiff_tpu/ops/fused_norm.py:78"
+GN_KERNELS = ("gn_stats", "gn_finalize", "gn_apply")
+# B4 shapes (B, H, W, C, G, film): the RefUNet path at batch 16 (first three,
+# no FiLM), FiLM at a wide256 shape, group widths 3 and 12, ragged 7x9
+GN_PATH_SHAPES = [(16, 256, 256, 1, 1, False), (16, 256, 256, 64, 4, False),
+                  (16, 256, 256, 128, 4, False)]
+GN_EXTRA_SHAPES = [(16, 128, 128, 128, 32, True), (4, 64, 64, 48, 16, True),
+                   (16, 32, 32, 384, 32, True), (2, 7, 9, 64, 4, True),
+                   (1, 7, 9, 1, 1, False)]
+# B4 vs plain: f32 sums in another order and __expf; bf16 rounds the output
+# once, a value near a rounding boundary may land one ulp away
+GN_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
+REF = ["--set", "model.preset=ref", "--set", "model.conditional=false",
+       "--set", "training.resolution=256", "--set", "training.vis_every=0"]
+REF_CALLS_B4 = 10        # GroupNorm->SiLU prologues per RefUNet call
+# RefUNet kernel path vs plain path, one call / one gradient, float32 (its
+# convolutions IEEE): only B4's summation order differs
+REF_REL_TOL = 1e-4
+REF_GRAD_REL_TOL = 1e-3
 
 
 def log(msg):
@@ -129,10 +173,11 @@ def cuda_time_ms(fn, iters, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def kernel_device_ms(fn, iters=20, kernel="flash_fwd_kernel"):
-    """Device time of the named kernel itself per call (profiler kernel
-    events): at small shapes the CUDA-event time of back-to-back calls is
-    set by the host wrapper's enqueue rate, not by the kernel."""
+def kernel_device_ms(fn, iters=20, kernel=("flash_fwd_kernel",)):
+    """Device time per call of the kernels whose names contain one of
+    ``kernel`` (all kernels for ``None``; profiler kernel events): at small
+    shapes the CUDA-event time of back-to-back calls is set by the host
+    wrapper's enqueue rate, not by the kernel."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -145,7 +190,7 @@ def kernel_device_ms(fn, iters=20, kernel="flash_fwd_kernel"):
         torch.cuda.synchronize()
     us = sum(e.time_range.elapsed_us() for e in prof.events()
              if e.device_type == DeviceType.CUDA
-             and kernel in e.name)
+             and (kernel is None or any(k in e.name for k in kernel)))
     return us / 1e3 / iters if us else "not measured"
 
 
@@ -269,7 +314,7 @@ def phase_bwd_kernels(fa, sm_clock_hz):
                      dict(tensors=6, stats=2, products=4))):
                 call = lambda: launch(q, k, v, g, lse, delta)
                 ms = cuda_time_ms(call, 50)
-                dev_ms = kernel_device_ms(call, kernel=kname)
+                dev_ms = kernel_device_ms(call, kernel=(kname,))
                 plain_ms = cuda_time_ms(
                     lambda: plain(q, k, v, g, lse, delta), plain_iters)
                 b_ms, b_by, b_detail = bound(B, S, H, D, dname, sm_clock_hz,
@@ -287,18 +332,196 @@ def phase_bwd_kernels(fa, sm_clock_hz):
     return rows
 
 
+def gn_inputs(B, H, W, C, film, dtype, seed=0):
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r = lambda *shape: torch.randn(shape, generator=g, device="cuda")
+    x = (0.5 + 2 * r(B, H, W, C)).to(dtype)
+    gamma, beta = 1 + 0.1 * r(C), 0.1 * r(C)
+    scale = shift = None
+    if film:
+        scale, shift = 0.2 * r(B, C), 0.2 * r(B, C)
+    return x, gamma, beta, scale, shift
+
+
+def gn_library(x, gamma, beta, G, scale, shift):
+    """The library yardstick of B4's function: ``F.group_norm`` on the
+    channels-last NCHW view, the FiLM FMA where there is one, ``F.silu``
+    (no single torch call computes the chain)."""
+    import torch.nn.functional as F
+
+    h = F.group_norm(x.permute(0, 3, 1, 2), G, gamma.to(x.dtype),
+                     beta.to(x.dtype), 1e-5)
+    if scale is not None:
+        h = (h * (1 + scale.to(x.dtype))[:, :, None, None]
+             + shift.to(x.dtype)[:, :, None, None])
+    return F.silu(h)
+
+
+def phase_gn_kernels(fn):
+    """B4 against its plain version at every listed shape, f32 and bf16:
+    times of the kernel (events and device), the plain version and the
+    library chain, the bound (x read once, y written once) and the error."""
+    import torch
+
+    rows = {}
+    for (B, H, W, C, G, film) in GN_PATH_SHAPES + GN_EXTRA_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).replace("torch.", "")
+            x, gamma, beta, scale, shift = gn_inputs(B, H, W, C, film, dtype,
+                                                     seed=C + G)
+            call = lambda: fn.fused_groupnorm_silu(x, gamma, beta, G, scale,
+                                                   shift)
+            n0 = fn.launches
+            y = call()
+            torch.cuda.synchronize()
+            if fn.launches != n0 + 1:
+                raise AssertionError("B4 launch was not counted")
+            ref = fn.gn_silu_plain(x, gamma, beta, G, scale, shift)
+            err = (y.float() - ref.float()).abs().max().item()
+            tol = GN_TOL[dname] * (1 + ref.float().abs()).max().item()
+            if not (torch.isfinite(y.float()).all() and err <= tol
+                    and torch.equal(y, call())):
+                raise AssertionError(
+                    f"B4 disagrees with plain (or with itself) at "
+                    f"{(B, H, W, C, G, film)} {dname}: err {err:.3e}")
+            big = x.numel() > 1 << 24
+            row = dict(
+                shape=[B, H, W, C], groups=G, film=film, dtype=dname,
+                max_abs_err=err, ms=cuda_time_ms(call, 20 if big else 50),
+                kernel_device_ms=kernel_device_ms(call, kernel=GN_KERNELS),
+                plain_ms=cuda_time_ms(
+                    lambda: fn.gn_silu_plain(x, gamma, beta, G, scale, shift),
+                    5 if big else 20),
+                library_ms=cuda_time_ms(
+                    lambda: gn_library(x, gamma, beta, G, scale, shift),
+                    20 if big else 50),
+                library="F.group_norm + F.silu (+ FiLM FMA); no single "
+                        "torch call computes the chain",
+                bound_ms=2 * x.numel() * x.element_size() / HBM_BPS * 1e3,
+                bound_by="bytes")
+            row["roofline_share"] = row["bound_ms"] / row["ms"]
+            rows[(B, H, W, C, G, film, dname)] = row
+            log("gn_kernel_check " + json.dumps(row))
+            del x, y, ref
+    torch.cuda.empty_cache()
+    return rows
+
+
+def wide256_norm_chains(fn, model):
+    """Every GroupNorm->(FiLM)->SiLU chain one wide256 denoiser call runs at
+    batch 16 under the bf16 sampling policy (ResBlock norm_0 / norm_1 and
+    out_norm; the attention norm has no SiLU), counted by shape, then the
+    port's chain as the model runs it against B4 on the same inputs. For a
+    later decision only: the CondUNet does not call B4."""
+    import torch
+    import torch.nn.functional as F
+
+    from superdiff_torch.models.layers import GroupNorm
+
+    seen, hooks = {}, []
+    for name, m in model.named_modules():
+        leaf = name.rsplit(".", 1)[-1]
+        if isinstance(m, GroupNorm) and leaf in ("norm_0", "norm_1",
+                                                 "out_norm"):
+            def hook(mod, args, _out, film=(leaf == "norm_1")):
+                x = args[0]
+                key = (tuple(x.shape), mod.num_groups, film,
+                       str(x.dtype).replace("torch.", ""))
+                seen.setdefault(key, [mod, 0])[1] += 1
+            hooks.append(m.register_forward_hook(hook))
+    with torch.no_grad():
+        model(torch.randn((16, 256, 256, 1), device="cuda"),
+              torch.full((16,), 500, device="cuda", dtype=torch.long),
+              torch.zeros((16,), device="cuda", dtype=torch.long))
+    for h in hooks:
+        h.remove()
+    nd = model.norm_dtype
+    rows, saved = [], {}
+    for (shape, G, film, dname), (mod, count) in sorted(
+            seen.items(), key=lambda kv: -kv[1][1] * kv[0][0][1]):
+        B, H, W, C = shape
+        x, _, _, scale, shift = gn_inputs(B, H, W, C, film,
+                                          getattr(torch, dname), seed=C)
+        w, b = mod.weight, mod.bias
+
+        def chain():
+            h = mod(x, nd)
+            if film:
+                h = (h * (1.0 + scale.to(nd)[:, None, None, :])
+                     + shift.to(nd)[:, None, None, :])
+            return F.silu(h)
+
+        kern = lambda: fn.fused_groupnorm_silu(x, w, b, G, scale, shift)
+        with torch.no_grad():
+            row = dict(shape=list(shape), groups=G, film=film, dtype=dname,
+                       launches_per_call=count,
+                       chain_ms=cuda_time_ms(chain, 30),
+                       b4_ms=cuda_time_ms(kern, 30),
+                       chain_device_ms=kernel_device_ms(chain, kernel=None),
+                       b4_device_ms=kernel_device_ms(kern, kernel=None),
+                       max_abs_diff=(chain().float() - kern().float()
+                                     ).abs().max().item())
+        for k in ("", "device_"):
+            saved[k] = saved.get(k, 0.0) + count * (
+                row[f"chain_{k}ms"] - row[f"b4_{k}ms"])
+        rows.append(row)
+        log("wide256_chain " + json.dumps(row))
+    return dict(rows=rows, chains_per_call=sum(r["launches_per_call"]
+                                               for r in rows),
+                sum_launches_x_chain_minus_b4_ms=saved[""],
+                sum_launches_x_chain_minus_b4_device_ms=saved["device_"])
+
+
+def reference_state_dict(seed, base=64, time_emb_dim=256):
+    """A state dict in the reference trainer's own key layout
+    (``downs.N.block.{0,2,3,5}``, ``mid``, ``ups.N``, ``time_mlp.{1,3}``,
+    ``time_emb``), from this script's torch rebuild of its UNet: torch's
+    default initialisation from ``seed``, GroupNorm affines moved off 1 / 0."""
+    import torch
+    from torch import nn
+
+    torch.manual_seed(seed)
+
+    def block(i, o):
+        m = nn.Module()
+        m.block = nn.Sequential(
+            nn.GroupNorm(min(4, i), i), nn.SiLU(),
+            nn.Conv2d(i, o, 3, padding=1), nn.GroupNorm(min(4, o), o),
+            nn.SiLU(), nn.Conv2d(o, o, 3, padding=1))
+        m.time_emb = nn.Linear(time_emb_dim, o)
+        return m
+
+    net = nn.Module()
+    net.time_mlp = nn.Sequential(
+        nn.Identity(), nn.Linear(time_emb_dim, 4 * time_emb_dim), nn.SiLU(),
+        nn.Linear(4 * time_emb_dim, time_emb_dim))
+    net.downs = nn.ModuleList([block(1, base), block(base, 2 * base)])
+    net.mid = block(2 * base, 2 * base)
+    net.ups = nn.ModuleList([block(2 * base, base), block(base, 1)])
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, nn.GroupNorm):
+                m.weight.add_(0.1 * torch.randn_like(m.weight))
+                m.bias.add_(0.1 * torch.randn_like(m.bias))
+    return net.state_dict()
+
+
 def flash_counts(fa):
     return (fa.launches, fa.bwd_dq_launches, fa.bwd_dkv_launches)
 
 
-def run_train_cli(train_cli, work, run_id, batch, epochs, steps, extra=()):
-    """cli.train on full-width wide256 at 256² with the synthetic stream;
-    returns (run dir, summary dict, metrics.jsonl rows)."""
+def run_train_cli(train_cli, work, run_id, batch, epochs, steps, extra=(),
+                  model_args=WIDE256):
+    """cli.train at 256² with the synthetic stream (full-width wide256
+    unless ``model_args`` names another model); returns (run dir,
+    metrics.jsonl rows)."""
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = train_cli.main([
             "--synthetic", "--device", "cuda", "--experiment-id", "smoke",
-            "--run-id", run_id, *WIDE256,
+            "--run-id", run_id, *model_args,
             "--set", f"training.batch_size={batch}",
             "--set", f"training.num_epochs={epochs}",
             "--set", f"training.steps_per_epoch={steps}",
@@ -654,26 +877,28 @@ def run_cli(sample, argv):
     return float(m.group(1))
 
 
-def profile_denoiser(model, batch, calls=5):
+def profile_denoiser(model, batch, calls=5, kernels=FLASH_KERNELS[:1]):
     """Host wall time vs device busy time of ``calls`` denoiser calls
-    (torch.profiler kernel events), the device's idle share, B1's share of
-    device time, and the top kernels by device time."""
+    (torch.profiler kernel events), the device's idle share, the share of
+    device time of the kernels named in ``kernels`` (B1 by default), and the
+    top kernels by device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     x = torch.randn((batch, 256, 256, 1), device="cuda")
     t = torch.full((batch,), 500, device="cuda", dtype=torch.long)
-    y = torch.zeros((batch,), device="cuda", dtype=torch.long)
+    y = ([torch.zeros((batch,), device="cuda", dtype=torch.long)]
+         if getattr(model, "num_classes", 0) else [])
     with torch.no_grad():
         for _ in range(3):
-            model(x, t, y)
+            model(x, t, *y)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             tic = time.perf_counter()
             for _ in range(calls):
-                model(x, t, y)
+                model(x, t, *y)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - tic) * 1e3 / calls
     by_name = {}
@@ -681,8 +906,8 @@ def profile_denoiser(model, batch, calls=5):
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     busy_ms = sum(by_name.values()) / 1e3 / calls
-    flash_ms = sum(v for k, v in by_name.items()
-                   if FLASH_KERNELS[0] in k) / 1e3 / calls
+    share_ms = sum(v for k, v in by_name.items()
+                   if any(n in k for n in kernels)) / 1e3 / calls
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     cpu_ops = sorted(((a.key, a.self_cpu_time_total, a.count)
                       for a in prof.key_averages()
@@ -695,11 +920,224 @@ def profile_denoiser(model, batch, calls=5):
         device_busy_ms_per_call=busy_ms if busy_ms else "not measured",
         device_idle_share=(1 - busy_ms / wall_ms) if busy_ms else
         "not measured",
-        flash_share_of_device=(flash_ms / busy_ms) if busy_ms else
-        "not measured",
+        kernels_share_of_device={"+".join(kernels): (
+            share_ms / busy_ms) if busy_ms else "not measured"},
         kernels_per_call=sum(1 for e in prof.events()
                              if e.device_type == DeviceType.CUDA) / calls,
         top_kernels_ms_per_call=[[k[:80], v / 1e3 / calls] for k, v in top])
+
+
+def phase_ref(fa, fn, work, sample, load_run, wide_model):
+    """The reference-model slice (phase 6 of the module docstring): two
+    reference-layout checkpoints through cli.import_torch, then cli.sample
+    (DDPM, SuperDiff OR) and cli.train on the full-width RefUNet, every
+    GroupNorm->SiLU through B4."""
+    import numpy as np
+    import torch
+
+    from superdiff_torch.cli import import_torch
+    from superdiff_torch.cli import train as train_cli
+    from superdiff_torch.diffusion.process import p_losses
+    from superdiff_torch.inference import apply_sampling_policy
+    from superdiff_torch.models.layers import GroupNormSiLU
+
+    out, runs = {}, {}
+    tic = time.time()
+    for seed, task in ((1, "TB"), (2, "PNEUMONIA")):
+        ckpt_dir = os.path.join(work, f"reference_{task}")
+        os.makedirs(ckpt_dir, exist_ok=True)
+        pt = os.path.join(ckpt_dir, "ema_epoch1.pt")
+        torch.save(reference_state_dict(seed), pt)
+        runs[task] = os.path.join(work, f"imported_{task}")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = import_torch.main(["--checkpoint", pt, "--out", runs[task],
+                                    "--task", task])
+        log(buf.getvalue().rstrip())
+        if rc != 0:
+            raise AssertionError(f"cli.import_torch returned {rc}")
+    log(f"phase 6 setup: two reference checkpoints imported in "
+        f"{time.time() - tic:.3f} s")
+
+    # (a) DDPM-1000, 256², batch 16, unconditional: the main path
+    out_a = os.path.join(work, "ref_ddpm")
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    fn.reset_launches()
+    secs = run_cli(sample, ["--run-dir", runs["TB"], "--method", "ddpm",
+                            "--batch-size", "16", "--seed", "0", "--out",
+                            out_a, "--device", "cuda"])
+    main_launches = dict(fn.launches_by_shape)
+    if fn.launches != REF_CALLS_B4 * 1000 or fa.launches:
+        raise AssertionError(f"ref DDPM-1000: {fn.launches} B4 and "
+                             f"{fa.launches} B1 launches, expected "
+                             f"{REF_CALLS_B4 * 1000} and 0")
+    x = np.load(os.path.join(out_a, "samples.npy"))
+    if x.shape != (16, 256, 256, 1) or not np.isfinite(x).all():
+        raise AssertionError(f"ref DDPM samples {x.shape} not finite/shaped")
+    out["ddpm"] = dict(s_per_batch=secs, batch=16, T=1000,
+                       b4_launches=fn.launches,
+                       peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                       abs_max=float(np.abs(x).max()))
+    log("phase 6a ref DDPM-1000 batch 16: " + json.dumps(out["ddpm"]))
+
+    # (b) one call at batch 2, kernel path vs plain path on the card, and
+    # the kernel path again with cuDNN's TF32 off (the phase runs with it
+    # on), then the call's time and profile at batch 16
+    _, model, _ = load_run(runs["TB"], device="cuda")
+    strided = []               # norm inputs that GroupNormSiLU had to copy
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: strided.append(1) if not args[0].is_contiguous()
+        else None) for m in model.modules() if isinstance(m, GroupNormSiLU)]
+    g = torch.Generator(device="cuda").manual_seed(5)
+    xb = torch.randn((2, 256, 256, 1), generator=g, device="cuda")
+    tb = torch.tensor([999, 10], device="cuda")
+    with torch.no_grad():
+        fn.reset_launches()
+        got = model(xb, tb)
+        n_kernel = fn.launches
+        with tf32(False):
+            same_without_tf32 = torch.equal(got, model(xb, tb))
+        with b4_swapped_for_plain(fn):
+            expect = model(xb, tb)
+    for h in hooks:
+        h.remove()
+    rel = (torch.linalg.norm(got - expect)
+           / torch.linalg.norm(expect)).item()
+    if not (n_kernel == REF_CALLS_B4
+            and fn.launches == 2 * REF_CALLS_B4
+            and torch.isfinite(got).all() and rel < REF_REL_TOL
+            and not strided and same_without_tf32):
+        raise AssertionError(f"RefUNet kernel path vs plain path: rel L2 "
+                             f"{rel:.3e} (tolerance {REF_REL_TOL}), "
+                             f"{n_kernel} B4 launches, {len(strided)} "
+                             f"strided norm inputs; bit-equal without TF32: "
+                             f"{same_without_tf32}")
+    apply_sampling_policy(model)
+    x16 = torch.randn((16, 256, 256, 1), device="cuda")
+    t16 = torch.full((16,), 500, device="cuda", dtype=torch.long)
+    with torch.no_grad():
+        call_ms = cuda_time_ms(lambda: model(x16, t16), 20)
+    out["call"] = dict(rel_l2_kernel_vs_plain=rel,
+                       bit_equal_tf32_on_off=same_without_tf32,
+                       batch16_ms=call_ms,
+                       profile=profile_denoiser(model, 16,
+                                                kernels=GN_KERNELS))
+    log("phase 6b RefUNet call: " + json.dumps(out["call"]))
+    del model
+
+    # (c) SuperDiff OR of the two imported runs, batch 4, T=1000
+    out_c = os.path.join(work, "ref_or")
+    fn.reset_launches()
+    secs = run_cli(sample, ["--run-dir", runs["TB"], "--run-dir2",
+                            runs["PNEUMONIA"], "--mode", "or",
+                            "--batch-size", "4", "--seed", "1", "--out",
+                            out_c, "--device", "cuda"])
+    xs = np.load(os.path.join(out_c, "samples.npy"))
+    with open(os.path.join(out_c, "logq.json")) as f:
+        lq = json.load(f)
+    logq = np.array([lq["logq_model1"], lq["logq_model2"]])
+    if (fn.launches != 2 * REF_CALLS_B4 * 1000
+            or xs.shape != (4, 256, 256, 1) or not np.isfinite(xs).all()
+            or logq.shape != (2, 4) or not np.isfinite(logq).all()):
+        raise AssertionError(f"ref SuperDiff OR: {fn.launches} B4 launches, "
+                             f"samples {xs.shape}, logq {logq.shape}")
+    out["superdiff_or"] = dict(s_per_batch=secs, batch=4, T=1000,
+                               b4_launches=fn.launches,
+                               logq_gap_mean=lq["logq_gap_mean"])
+    log("phase 6c ref SuperDiff OR TB x PNEUMONIA: "
+        + json.dumps(out["superdiff_or"]))
+
+    # (d) the CondUNet is untouched: one wide256 call launches no B4
+    fa.reset_launches()
+    fn.reset_launches()
+    with torch.no_grad():
+        wide_model(torch.randn((2, 256, 256, 1), device="cuda"),
+                   torch.tensor([5, 900], device="cuda"),
+                   torch.tensor([0, 1], device="cuda"))
+    torch.cuda.synchronize()
+    if fn.launches != 0 or fa.launches != 8:
+        raise AssertionError(f"wide256 call: {fn.launches} B4 and "
+                             f"{fa.launches} B1 launches, expected 0 and 8")
+    log("phase 6d wide256 call: 0 B4 launches, 8 B1")
+
+    # (e) cli.train on the ref preset, then gradients kernel vs plain
+    STEPS, EPOCHS, VAL = 8, 3, 2
+    fn.reset_launches()
+    _, metrics = run_train_cli(
+        train_cli, work, "ref", 4, EPOCHS, STEPS,
+        ["--set", f"training.eval_batches={VAL}"], model_args=REF)
+    expect_n = REF_CALLS_B4 * EPOCHS * (STEPS + VAL)
+    tr, va = epoch_rows(metrics, "avg_loss"), epoch_rows(metrics, "val_loss")
+    losses = [m["avg_loss"] for m in tr] + [m["val_loss"] for m in va]
+    if fn.launches != expect_n or not np.isfinite(losses).all():
+        raise AssertionError(f"ref training: {fn.launches} B4 launches "
+                             f"(expected {expect_n}), losses {losses}")
+    if not (va[-1]["val_loss"] < va[0]["val_loss"]
+            and tr[-1]["avg_loss"] < tr[0]["avg_loss"]):
+        raise AssertionError(f"ref loss did not fall: train {tr}, val {va}")
+    out["train"] = dict(
+        batch=4, steps=EPOCHS * STEPS, b4_launches=fn.launches,
+        train_loss_by_epoch=[m["avg_loss"] for m in tr],
+        val_loss_by_epoch=[m["val_loss"] for m in va],
+        images_per_s_last_epoch=tr[-1]["images_per_sec"])
+    log("phase 6e cli.train ref: " + json.dumps(out["train"]))
+
+    _, model, schedule = load_run(runs["PNEUMONIA"], device="cuda")
+    model.train()
+    g = torch.Generator(device="cuda").manual_seed(11)
+    x0 = torch.randn((2, 256, 256, 1), generator=g, device="cuda")
+    noise = torch.randn((2, 256, 256, 1), generator=g, device="cuda")
+    t = torch.tensor([700, 20], device="cuda")
+    params = list(model.parameters())
+
+    def grads():
+        loss = p_losses(schedule, model, x0, t, noise=noise)
+        return torch.autograd.grad(loss, params)
+
+    fn.reset_launches()
+    g_kernel = grads()
+    n_kernel = fn.launches
+    with b4_swapped_for_plain(fn):
+        g_plain = grads()
+    num = sum(((a - b) ** 2).sum() for a, b in zip(g_kernel, g_plain))
+    den = sum((b ** 2).sum() for b in g_plain)
+    rel = (num.sqrt() / den.sqrt()).item()
+    if not (n_kernel == REF_CALLS_B4 and fn.launches == REF_CALLS_B4
+            and rel < REF_GRAD_REL_TOL):
+        raise AssertionError(f"RefUNet gradients, kernel vs plain: rel L2 "
+                             f"{rel:.3e} (tolerance {REF_GRAD_REL_TOL}), "
+                             f"{n_kernel} B4 launches")
+    out["grad_check"] = dict(rel_l2=rel, leaves=len(params))
+    log("phase 6e RefUNet gradients, B4 vs plain: "
+        + json.dumps(out["grad_check"]))
+    return out, main_launches
+
+
+@contextlib.contextmanager
+def b4_swapped_for_plain(fn):
+    """B4's wrapper runs the plain version on CUDA tensors inside the block
+    (the package has no such switch), for the kernel-vs-plain checks."""
+    kernel = fn._gn_silu_cuda
+    fn._gn_silu_cuda = (lambda x, gamma, beta, G, scale, shift, eps:
+                        fn.gn_silu_plain(x, gamma, beta, G, scale, shift, eps))
+    try:
+        yield
+    finally:
+        fn._gn_silu_cuda = kernel
+
+
+@contextlib.contextmanager
+def tf32(on):
+    """cuDNN's TF32 for float32 convolutions (PyTorch's default is on)."""
+    import torch
+
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = on
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
 
 
 def check_launches(fa, calls, what):
@@ -737,10 +1175,12 @@ def main() -> int:
     from superdiff_torch.compat import flax_params as fp
     from superdiff_torch.inference import apply_sampling_policy, load_run
     from superdiff_torch.models.presets import model_from_config
+    from superdiff_torch.ops import _build
     from superdiff_torch.ops import flash_attention as fa
+    from superdiff_torch.ops import fused_norm as fn
 
     tic = time.time()
-    sos = fa.build_all(verbose=True)
+    sos = _build.build_all(verbose=True)
     build_s = time.time() - tic
     log(f"phase 2 build: {sorted(so.name for so in sos.values())} in "
         f"{build_s:.3f} s (one nvcc per source, started together)")
@@ -751,6 +1191,8 @@ def main() -> int:
     bwd_rows = phase_bwd_kernels(fa, sm_clock_hz)
     log(f"phase 3b backward kernel checks: {len(bwd_rows)} kernel/shape/"
         "dtype cases agree")
+    gn_rows = phase_gn_kernels(fn)
+    log(f"phase 3c B4 checks: {len(gn_rows)} shape/dtype cases agree")
 
     work = tempfile.mkdtemp(prefix="superdiff_smoke_")
     run1, run2 = os.path.join(work, "run1"), os.path.join(work, "run2")
@@ -807,7 +1249,10 @@ def main() -> int:
     profiles = [profile_denoiser(model, b) for b in (16, 4)]
     for p in profiles:
         log("profile " + json.dumps(p))
-    del model, ref
+    del ref
+    chains = wide256_norm_chains(fn, model)
+    log("phase 4b wide256 GroupNorm->SiLU chains vs B4 (measurement only): "
+        + json.dumps({k: v for k, v in chains.items() if k != "rows"}))
 
     # (c) SuperDiff OR and AND, batch 4, T=1000, two models
     superdiff = {}
@@ -835,10 +1280,19 @@ def main() -> int:
     training_out, train_launches = phase_training(
         fa, work, run1, tcfg, model_from_config, load_run, sample)
 
+    # the reference-model slice runs under PyTorch's default cuDNN TF32 (on),
+    # as a user's cli.sample / cli.train would; the RefUNet's convolutions
+    # run IEEE float32 whatever it says, which phase 6b checks
+    with tf32(True):
+        ref_out, ref_launches = phase_ref(fa, fn, work, sample, load_run,
+                                          model)
+    del model
+
     summary = dict(card=card_line, build_s=build_s, training=training_out,
                    ddpm1000_batch16_s=ddpm_s, denoiser_ms_batch16=step_ms,
                    slice_rel_l2_bf16_vs_f32=rel, superdiff=superdiff,
                    profiles=profiles, ddpm_peak_mem_gb=ddpm_peak_gb,
+                   wide256_norm_chains=chains, ref_slice=ref_out,
                    total_s=time.time() - t_start)
     log("slice " + json.dumps(summary))
 
@@ -869,6 +1323,18 @@ def main() -> int:
             if kernels[-1]["launches"] == 0:
                 raise AssertionError(f"{name} never launched at path shape "
                                      f"{(B, S, H, D)} in training")
+    for (B, H, W, C, G, film) in GN_PATH_SHAPES:
+        row = gn_rows[(B, H, W, C, G, film, "float32")]
+        kernels.append(dict(
+            name=f"group_norm_silu[f32 B{B} {H}x{W} C{C} G{G}]",
+            route="cuda", source=GN_SRC, replaces=TPU_GN,
+            launches=ref_launches.get((H, W, C, G, film, "float32"), 0),
+            max_abs_err=row["max_abs_err"], ms=row["ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=row["library_ms"]))
+        if kernels[-1]["launches"] == 0:
+            raise AssertionError(f"B4 never launched at path shape "
+                                 f"{(B, H, W, C, G)} in the ref DDPM run")
     print(card_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,7 @@ inside (``nn.Module``s, explicit
 The package imports torch, numpy and the standard library only — never
 jax, flax or superdiff_tpu — so it runs on a machine that has none of
 them. Hand-written CUDA kernels live in ``csrc/`` and are compiled with
-``nvcc`` at first use (``ops/flash_attention.py``).
+``nvcc`` at first use (``ops/_build.py``).
 """
 
 __version__ = "0.1.0"

@@ -42,7 +42,9 @@ def main(argv=None) -> int:
                              device=args.device)
     os.makedirs(args.out, exist_ok=True)
     path = os.path.join(args.out, EXPORT_FILE)
-    n = export_params(to_flax(model), path, args.dtype)
+    # under a top "params" level, as Flax variables: the JAX package applies
+    # what its load_run reads as it stands
+    n = export_params({"params": to_flax(model)}, path, args.dtype)
     save_config(cfg, os.path.join(args.out, "config.yaml"))
     print(f"exported {n} arrays ({os.path.getsize(path) / 1e6:.1f} MB, "
           f"{args.dtype}) to {args.out}")

@@ -44,8 +44,8 @@ def cast_sampling_params(state_dict: Dict[str, torch.Tensor],
 
 def inference_model(model):
     """Set the inference dtype policy on ``model`` in place (bfloat16 norm
-    passes; statistics still reduce in float32). No-op when
-    ``SUPERDIFF_TPU_SAMPLE_F32`` is set."""
+    passes; statistics still reduce in float32). No-op for a model without
+    the knob (the RefUNet) or when ``SUPERDIFF_TPU_SAMPLE_F32`` is set."""
     if os.environ.get("SUPERDIFF_TPU_SAMPLE_F32"):
         return model
     if hasattr(model, "set_norm_dtype"):
@@ -57,7 +57,10 @@ def inference_model(model):
 def apply_sampling_policy(model):
     """The production sampling configuration, applied in place: bfloat16
     norm passes and a one-time bfloat16 cast of the conv/attention/dense
-    weights. Opt out with ``SUPERDIFF_TPU_SAMPLE_F32=1``."""
+    weights. On the RefUNet only the cast applies (its conv and
+    ``time_emb`` weights): its float32 layers cast the rounded weights back,
+    so the graph runs float32, as Flax's float32 layers promote them. Opt out
+    with ``SUPERDIFF_TPU_SAMPLE_F32=1``."""
     if os.environ.get("SUPERDIFF_TPU_SAMPLE_F32"):
         return model
     inference_model(model)

@@ -1,4 +1,5 @@
-"""Building blocks of the CondUNet, as ``nn.Module``s on NHWC tensors.
+"""Building blocks of the CondUNet and the RefUNet, as ``nn.Module``s on
+NHWC tensors.
 
 Port of ``superdiff_tpu/models/layers.py``. Activations stay NHWC
 ``(B, H, W, C)`` as in the JAX package; a convolution sees them through a
@@ -9,7 +10,9 @@ linear ``(out, in)``); ``compat/flax_params.py`` converts Flax trees.
 Numerics follow Flax: each layer casts its input and weights to the
 layer's ``compute_dtype``; GroupNorm reduces ``E[x]`` and ``E[x^2]`` in
 float32 (variance ``E[x^2] - E[x]^2`` clipped at 0, eps 1e-5) and returns
-``norm_dtype``; FiLM is applied in ``norm_dtype``.
+``norm_dtype``; FiLM is applied in ``norm_dtype``. ``GroupNormSiLU`` and
+``NormAct`` compute GroupNorm -> FiLM -> SiLU as one function in float32
+(``GroupNormSiLU``: kernel B4 on the card).
 """
 
 from __future__ import annotations
@@ -95,6 +98,84 @@ class GroupNorm(nn.Module):
             1, 1, G, C // G)
         y = (xg - mu) * mul + self.bias.float().view(1, 1, G, C // G)
         return y.reshape(x.shape).to(out_dtype)
+
+
+class GroupNormSiLU(nn.Module):
+    """GroupNorm + optional FiLM + SiLU through
+    :func:`~superdiff_torch.ops.fused_norm.fused_groupnorm_silu`: kernel B4
+    on a CUDA tensor, the plain version on a CPU tensor. Parameters
+    ``weight`` / ``bias`` (Flax ``scale`` / ``bias``); output in ``x``'s
+    dtype."""
+
+    def __init__(self, num_groups: int, channels: int, device=None):
+        super().__init__()
+        self.num_groups = num_groups
+        self.weight = nn.Parameter(torch.ones(channels, device=device))
+        self.bias = nn.Parameter(torch.zeros(channels, device=device))
+
+    def forward(self, x: torch.Tensor,
+                film_scale: Optional[torch.Tensor] = None,
+                film_shift: Optional[torch.Tensor] = None) -> torch.Tensor:
+        from superdiff_torch.ops.fused_norm import fused_groupnorm_silu
+
+        # the kernel takes NHWC-contiguous x; a conv's output is already
+        # (cuDNN returns channels-last), so this copies nothing on the path
+        return fused_groupnorm_silu(
+            x.contiguous(), self.weight, self.bias, self.num_groups,
+            film_scale, film_shift)
+
+
+class NormAct(nn.Module):
+    """GroupNorm + optional FiLM + SiLU through the plain chain
+    :func:`~superdiff_torch.ops.packed_norm.groupnorm_film_silu` (the
+    reference's lane-packed variant; the fold does not change the result),
+    output in ``dtype``. Parameters ``weight`` / ``bias``."""
+
+    def __init__(self, num_groups: int, channels: int,
+                 dtype=torch.float32, eps: float = 1e-5, device=None):
+        super().__init__()
+        self.num_groups, self.dtype, self.eps = num_groups, dtype, eps
+        self.weight = nn.Parameter(torch.ones(channels, device=device))
+        self.bias = nn.Parameter(torch.zeros(channels, device=device))
+
+    def forward(self, x: torch.Tensor,
+                film_scale: Optional[torch.Tensor] = None,
+                film_shift: Optional[torch.Tensor] = None) -> torch.Tensor:
+        from superdiff_torch.ops.packed_norm import groupnorm_film_silu
+
+        return groupnorm_film_silu(
+            x, self.weight, self.bias, self.num_groups, eps=self.eps,
+            film_scale=film_scale, film_shift=film_shift,
+            out_dtype=self.dtype, pack=True)
+
+
+@torch.no_grad()
+def init_flax_defaults(model: nn.Module, seed: int,
+                       zero_kernels=()) -> nn.Module:
+    """Initialise ``model`` with the Flax modules' distributions: conv and
+    dense kernels LeCun-normal (truncated at 2 sigma, variance 1/fan_in),
+    embeddings N(0, 1/dim), biases 0, norm scales 1; the kernels of
+    submodules whose last name is in ``zero_kernels`` 0. Values are drawn on
+    the CPU from ``seed``, in module order, so they do not depend on the
+    device."""
+    g = torch.Generator().manual_seed(seed)
+    for name, m in model.named_modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            leaf = name.rsplit(".", 1)[-1]
+            w = torch.zeros(m.weight.shape)
+            if leaf not in zero_kernels:
+                std = (w[0].numel() ** -0.5) / 0.87962566103423978
+                nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
+                                      generator=g)
+            m.weight.copy_(w)
+            m.bias.zero_()
+        elif isinstance(m, nn.Embedding):
+            w = torch.randn(m.weight.shape, generator=g)
+            m.weight.copy_(w * m.weight.shape[1] ** -0.5)
+        elif isinstance(m, (GroupNorm, GroupNormSiLU, NormAct)):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+    return model
 
 
 class TimeEmbeddingMLP(nn.Module):

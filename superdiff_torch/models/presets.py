@@ -1,8 +1,8 @@
 """Named model presets (the same table as ``superdiff_tpu/models/presets.py``).
 
 The topology per preset is copied exactly so checkpoints move between the
-two packages. The ``"ref"`` preset (the reference's tiny RefUNet) is not
-ported yet.
+two packages. ``"ref"`` is the reference's own graph
+(:class:`~superdiff_torch.models.unet_ref.RefUNet`).
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ from typing import Any, Dict
 import torch
 
 from superdiff_torch.models.unet import CondUNet
+from superdiff_torch.models.unet_ref import RefUNet
 
 _PRESETS: Dict[str, Dict[str, Any]] = {
     "small64": dict(base_channels=64, channel_mults=(1, 2, 2, 4),
@@ -68,12 +69,18 @@ def build_model(preset: str = "small64",
                 compute_dtype=torch.bfloat16,
                 resolution: int = None,
                 device="cuda",
-                **overrides) -> CondUNet:
+                **overrides):
     """Build a CondUNet from a named preset (+ field overrides) for
-    ``resolution``² inputs (default: the preset's working resolution)."""
+    ``resolution``² inputs (default: the preset's working resolution).
+
+    ``"ref"`` builds the RefUNet from its own graph fields only; the
+    conditioning and dtype-policy fields do not exist on that graph, and
+    ``parameterization`` is kept (it is what the head's output means)."""
     if preset == "ref":
-        raise NotImplementedError(
-            "preset 'ref' (RefUNet) is not ported to superdiff_torch yet")
+        return RefUNet(device=device, **{
+            k: v for k, v in overrides.items()
+            if k in ("in_channels", "out_channels", "time_emb_dim",
+                     "base_channels", "parameterization")})
     if preset not in _PRESETS:
         raise ValueError(
             f"unknown preset {preset!r} (have {['ref'] + sorted(_PRESETS)})")
@@ -85,7 +92,7 @@ def build_model(preset: str = "small64",
                     compute_dtype=compute_dtype, device=device, **cfg)
 
 
-def model_from_config(cfg, device="cuda") -> CondUNet:
+def model_from_config(cfg, device="cuda"):
     """Build the model a :class:`~superdiff_torch.config.Config` describes
     (the same overrides, in the same order, as the JAX package)."""
     overrides = {}

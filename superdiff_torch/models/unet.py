@@ -29,7 +29,7 @@ from torch.utils.checkpoint import checkpoint
 
 from superdiff_torch.models.layers import (
     Downsample, GroupNorm, ResBlock, SelfAttention2D, TimeEmbeddingMLP,
-    Upsample, conv_nhwc, num_groups_for)
+    Upsample, conv_nhwc, init_flax_defaults, num_groups_for)
 
 
 class CondUNet(nn.Module):
@@ -164,31 +164,12 @@ class CondUNet(nn.Module):
         """Label index meaning "unconditional" (classifier-free guidance)."""
         return self.num_classes
 
-    @torch.no_grad()
     def init_parameters(self, seed: int = 0) -> "CondUNet":
-        """Initialise for training with the Flax module's distributions:
-        conv and dense kernels LeCun-normal (truncated at 2 sigma, variance
-        1/fan_in), the embedding N(0, 1/dim), biases 0, norm scales 1, and
-        ``conv_1`` / ``proj`` / ``out_conv`` kernels 0. Values are drawn on
-        the CPU from ``seed`` so they do not depend on the device."""
-        g = torch.Generator().manual_seed(seed)
-        for name, m in self.named_modules():
-            if isinstance(m, (nn.Conv2d, nn.Linear)):
-                leaf = name.rsplit(".", 1)[-1]
-                w = torch.zeros(m.weight.shape)
-                if leaf not in ("conv_1", "proj", "out_conv"):
-                    std = (w[0].numel() ** -0.5) / 0.87962566103423978
-                    nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
-                                          generator=g)
-                m.weight.copy_(w)
-                m.bias.zero_()
-            elif isinstance(m, nn.Embedding):
-                w = torch.randn(m.weight.shape, generator=g)
-                m.weight.copy_(w * m.weight.shape[1] ** -0.5)
-            elif isinstance(m, GroupNorm):
-                m.weight.fill_(1.0)
-                m.bias.zero_()
-        return self
+        """Initialise for training with the Flax module's distributions
+        (:func:`init_flax_defaults`); the ``conv_1`` / ``proj`` /
+        ``out_conv`` kernels are 0."""
+        return init_flax_defaults(self, seed,
+                                  ("conv_1", "proj", "out_conv"))
 
     def set_norm_dtype(self, dtype: torch.dtype) -> "CondUNet":
         """Set the norm-pass dtype of every layer (the inference policy)."""

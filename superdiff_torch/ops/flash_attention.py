@@ -5,9 +5,7 @@ Port of ``superdiff_tpu/ops/flash_attention.py``: the forward
 (``_flash_bwd_dq_kernel``, ``_flash_bwd_dkv_kernel`` ->
 ``csrc/flash_attn_bwd.cu``), tied together by :class:`FlashAttentionFn` as the
 reference ties them with ``jax.custom_vjp``. The sources are CUDA C++ for
-``sm_90a`` with a plain C interface, compiled with ``nvcc`` at first use into
-``build/superdiff_torch/`` (keyed by a hash of the source) and bound with
-``ctypes``.
+``sm_90a`` with a plain C interface, built and bound by ``ops/_build.py``.
 
 Contracts:
 
@@ -32,25 +30,14 @@ no counterpart here.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import tempfile
-from concurrent.futures import ThreadPoolExecutor
-from pathlib import Path
 
 import torch
 
+from superdiff_torch.ops import _build
+
 SUPPORTED_HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
-
-_CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = {"fwd": _CSRC / "flash_attn_fwd.cu", "bwd": _CSRC / "flash_attn_bwd.cu"}
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "superdiff_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
 
 launches = 0                 # forward kernel launches since the last reset
 launches_by_shape = {}       # (S, D, dtype name) -> launches, same events
@@ -58,7 +45,6 @@ bwd_dq_launches = 0          # dQ kernel launches since the last reset
 bwd_dq_launches_by_shape = {}
 bwd_dkv_launches = 0         # dK/dV kernel launches since the last reset
 bwd_dkv_launches_by_shape = {}
-_libs = {}
 
 
 def reset_launches() -> None:
@@ -73,69 +59,15 @@ def _shape_key(q) -> tuple:
     return (q.shape[1], q.shape[3], str(q.dtype).replace("torch.", ""))
 
 
-def _nvcc() -> str:
-    cands = [shutil.which("nvcc")]
-    for env in ("CUDA_HOME", "CUDA_PATH"):
-        if os.environ.get(env):
-            cands.append(os.path.join(os.environ[env], "bin", "nvcc"))
-    cands.append("/usr/local/cuda/bin/nvcc")
-    for c in cands:
-        if c and os.path.exists(c):
-            return c
-    raise RuntimeError("nvcc not found (set CUDA_HOME); the flash-attention "
-                       "kernel is compiled at first use")
-
-
-def build(which: str = "fwd", verbose: bool = False) -> Path:
-    """Compile one kernel source (``"fwd"`` or ``"bwd"``; once per source
-    hash) and return the .so path.
-
-    ``verbose=True`` adds ``-Xptxas -v`` and prints the compiler's report
-    (registers, shared memory, spills per instantiation)."""
-    source = SOURCES[which]
-    src = source.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = _BUILD_DIR / f"{source.stem}_{tag}.so"
-    if so.exists() and not verbose:
-        return so
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, str(source)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
-                           f"{res.stdout}\n{res.stderr}")
-    if verbose:
-        print(res.stdout + res.stderr)
-    os.replace(tmp, so)
-    return so
-
-
-def build_all(verbose: bool = False) -> dict:
-    """Compile every source, one ``nvcc`` each, all started together."""
-    with ThreadPoolExecutor(max_workers=len(SOURCES)) as pool:
-        futures = {w: pool.submit(build, w, verbose) for w in SOURCES}
-        return {w: f.result() for w, f in futures.items()}
-
-
 def _load(which: str):
-    if which not in _libs:
-        lib = ctypes.CDLL(str(build(which)))
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        tail = [i32] * 5 + [ctypes.c_float, ptr, ptr]
-        if which == "fwd":
-            lib.superdiff_flash_attn_fwd.argtypes = [ptr] * 5 + tail
-            lib.superdiff_flash_attn_fwd.restype = i32
-        else:
-            lib.superdiff_flash_attn_bwd_dq.argtypes = [ptr] * 7 + tail
-            lib.superdiff_flash_attn_bwd_dq.restype = i32
-            lib.superdiff_flash_attn_bwd_dkv.argtypes = [ptr] * 8 + tail
-            lib.superdiff_flash_attn_bwd_dkv.restype = i32
-        _libs[which] = lib
-    return _libs[which]
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    tail = [i32] * 5 + [ctypes.c_float, ptr, ptr]
+    if which == "fwd":
+        return _build.load("fwd",
+                           {"superdiff_flash_attn_fwd": [ptr] * 5 + tail})
+    return _build.load("bwd",
+                       {"superdiff_flash_attn_bwd_dq": [ptr] * 7 + tail,
+                        "superdiff_flash_attn_bwd_dkv": [ptr] * 8 + tail})
 
 
 def _check(q, k, v):

@@ -267,7 +267,8 @@ def test_train_state_round_trip_through_numpy():
 def test_port_imports_without_jax(tmp_path):
     """Every superdiff_torch module (and chip_smoke.py) imports, and the toy
     CondUNet runs on CPU, with jax, flax, optax, orbax and superdiff_tpu
-    blocked; the training, checkpoint and CLI modules are among them."""
+    blocked; the training, checkpoint, CLI, group-norm and reference-import
+    modules are among them."""
     script = textwrap.dedent(f"""
         import importlib, pkgutil, sys
         BLOCK = ("jax", "jaxlib", "flax", "optax", "orbax", "superdiff_tpu",
@@ -293,8 +294,16 @@ def test_port_imports_without_jax(tmp_path):
             out = m(torch.zeros(2, 16, 16, 1), torch.tensor([1, 2]),
                     torch.tensor([0, 2]))
         assert out.shape == (2, 16, 16, 1)
+        from superdiff_torch.models.unet_ref import RefUNet
+        with torch.no_grad():
+            out = RefUNet(base_channels=4, device="cpu")(
+                torch.zeros(1, 8, 8, 1), torch.tensor([3]))
+        assert out.shape == (1, 8, 8, 1)
         for m in ("training.loop", "training.steps", "checkpoint",
-                  "cli.train", "cli.export", "data.transforms"):
+                  "cli.train", "cli.export", "data.transforms",
+                  "ops._build", "ops.fused_norm", "ops.packed_norm",
+                  "models.unet_ref", "compat.torch_import",
+                  "cli.import_torch"):
             assert "superdiff_torch." + m in mods, m
         bad = [n for n in sys.modules if n.split(".")[0] in BLOCK]
         assert not bad, bad

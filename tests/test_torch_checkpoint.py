@@ -277,6 +277,8 @@ def test_load_run_export_and_sample_from_a_trained_run(tmp_path, capsys):
     assert export_cli.main(["--run-dir", run, "--out", out,
                             "--device", "cpu"]) == 0
     assert sorted(os.listdir(out)) == ["config.yaml", fp.EXPORT_FILE]
+    with np.load(os.path.join(out, fp.EXPORT_FILE)) as z:  # Flax variables
+        assert z.files and all(k.startswith("params/") for k in z.files)
     with pytest.raises(ValueError, match="one snapshot"):
         load_run(out, device="cpu", step=2)
     with pytest.raises(FileNotFoundError, match="best-val"):

@@ -9,7 +9,9 @@ machine without jax (skip the JAX conftest there):
 import pytest
 import torch
 
+from superdiff_torch.ops import _build
 from superdiff_torch.ops import flash_attention as fa
+from superdiff_torch.ops import fused_norm as fn
 from superdiff_torch.ops.attention import _math_attention, multihead_attention
 
 
@@ -121,9 +123,121 @@ def test_no_fallback_when_the_build_fails(cuda, monkeypatch):
     the plain version on a CUDA tensor."""
     q, k, v = _fused_qkv(1, 64, 2, 32, torch.float32, cuda)
     out, lse = fa._flash_forward(q, k, v)
-    monkeypatch.setattr(fa, "_libs", {})
-    monkeypatch.setattr(fa, "NVCC_FLAGS", fa.NVCC_FLAGS + ("--no-such-flag",))
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "NVCC_FLAGS",
+                        _build.NVCC_FLAGS + ("--no-such-flag",))
     with pytest.raises(RuntimeError, match="nvcc failed"):
         fa._flash_backward(q, k, v, out, lse, torch.ones_like(out))
     with pytest.raises(RuntimeError, match="nvcc failed"):
         fa._flash_forward(q, k, v)
+    x, gamma, beta, _, _ = _gn_inputs(1, 4, 4, 8, False, torch.float32, cuda)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        fn.fused_groupnorm_silu(x, gamma, beta, 4)
+
+
+def _gn_inputs(B, H, W, C, film, dtype, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s: torch.randn(s, generator=g, device=dev)
+    x = (0.5 + 2 * r(B, H, W, C)).to(dtype)
+    gamma, beta = 1 + 0.1 * r(C), 0.1 * r(C)
+    if not film:
+        return x, gamma, beta, None, None
+    return x, gamma, beta, 0.2 * r(B, C), 0.2 * r(B, C)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,H,W,C,G,film", [
+    (2, 256, 256, 1, 1, False), (2, 256, 256, 64, 4, False),
+    (2, 64, 64, 128, 4, True), (2, 8, 8, 48, 16, True),
+    (2, 8, 8, 384, 32, True), (1, 7, 9, 64, 4, True), (1, 7, 9, 1, 1, False)])
+def test_group_norm_kernel_matches_plain_on_card(cuda, B, H, W, C, G, film,
+                                                 dtype):
+    """B4 against ``gn_silu_plain`` on the same inputs: the RefUNet's group
+    widths 1 and 16/32, FiLM, group widths 3 and 12, ragged H*W (7x9, and
+    63 elements that take the scalar path). Tolerance: f32 differs in
+    summation order and __expf -> 1e-4; bf16 rounds the output once
+    (2^-8 relative), and a float32 value near a rounding boundary may land
+    one ulp away -> 1e-2. A rerun gives the same bits."""
+    x, gamma, beta, scale, shift = _gn_inputs(B, H, W, C, film, dtype, cuda)
+    before = fn.launches
+    y = fn.fused_groupnorm_silu(x, gamma, beta, G, scale, shift)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert y.shape == x.shape and y.dtype == dtype
+    ref = fn.gn_silu_plain(x, gamma, beta, G, scale, shift)
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(y.float(), ref.float(), rtol=tol, atol=tol)
+    assert torch.equal(y, fn.fused_groupnorm_silu(x, gamma, beta, G, scale,
+                                                  shift))
+
+
+@pytest.mark.cuda
+def test_group_norm_wrapper_rules_and_autograd_on_card(cuda):
+    """Dtypes and layouts the kernel does not take raise; a default-built
+    ``GroupNormSiLU`` launches the kernel; under autograd the forward is the
+    kernel and the gradients of all five inputs are autograd of the plain
+    version."""
+    from superdiff_torch.models.layers import GroupNormSiLU
+
+    x, gamma, beta, scale, shift = _gn_inputs(2, 16, 16, 32, True,
+                                              torch.float32, cuda)
+    with pytest.raises(ValueError, match="bfloat16/float32"):
+        fn.fused_groupnorm_silu(x.half(), gamma, beta, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        fn.fused_groupnorm_silu(x.transpose(1, 2), gamma, beta, 8)
+    fn.reset_launches()
+    with torch.no_grad():
+        GroupNormSiLU(8, 32, device=cuda)(x, scale, shift)
+    assert fn.launches == 1
+    fn.reset_launches()
+    leaves = [a.detach().clone().requires_grad_()
+              for a in (x, gamma, beta, scale, shift)]
+    y = fn.fused_groupnorm_silu(*leaves[:3], 8, *leaves[3:])
+    assert fn.launches == 1
+    g = torch.randn_like(y)
+    got = torch.autograd.grad(y, leaves, g)
+    ref = torch.autograd.grad(
+        fn.gn_silu_plain(*leaves[:3], 8, *leaves[3:]), leaves, g)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_refunet_convs_ignore_the_process_tf32_default(cuda):
+    """The RefUNet pins its convolutions to IEEE float32: a call is
+    bit-equal with PyTorch's cuDNN TF32 on and off, and ``Fp32Conv3x3``'s
+    gradients under TF32 on match autograd of ``F.conv2d`` under TF32 off
+    at 1e-4 (other algorithms sum in other orders; TF32 would be off by
+    ~1e-3)."""
+    import torch.nn.functional as F
+
+    from superdiff_torch.models.unet_ref import Fp32Conv3x3, RefUNet
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    model = RefUNet(base_channels=16, device=cuda).init_parameters(0)
+    x = torch.randn((2, 64, 64, 1), generator=g, device=cuda)
+    t = torch.tensor([3, 700], device=cuda)
+    xc = torch.randn((2, 32, 16, 16), generator=g, device=cuda).contiguous(
+        memory_format=torch.channels_last).requires_grad_()
+    w = torch.randn((24, 32, 3, 3), generator=g, device=cuda,
+                    requires_grad=True)
+    b = torch.randn((24,), generator=g, device=cuda, requires_grad=True)
+    dy = torch.randn((2, 24, 16, 16), generator=g, device=cuda)
+    prev = torch.backends.cudnn.allow_tf32
+    try:
+        outs = []
+        for on in (True, False):
+            torch.backends.cudnn.allow_tf32 = on
+            with torch.no_grad():
+                outs.append(model(x, t))
+        torch.backends.cudnn.allow_tf32 = True
+        got = torch.autograd.grad(Fp32Conv3x3.apply(xc, w, b), (xc, w, b), dy)
+        torch.backends.cudnn.allow_tf32 = False
+        ref = torch.autograd.grad(F.conv2d(xc, w, b, padding=1), (xc, w, b),
+                                  dy)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    assert torch.equal(outs[0], outs[1])
+    for a, r in zip(got, ref):
+        torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-4)

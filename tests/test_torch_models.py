@@ -200,8 +200,15 @@ def test_time_embedding_matches_flax():
 
 
 def test_ref_preset_not_ported_and_model_needs_labels():
-    with pytest.raises(NotImplementedError):
-        build_model("ref", device="cpu")
+    """``"ref"`` builds the unconditional RefUNet from its own graph fields
+    (the CondUNet-only ones are dropped); the CondUNet needs labels."""
+    from superdiff_torch.models.unet_ref import RefUNet
+
+    ref = build_model("ref", device="cpu", base_channels=8, dropout=0.1,
+                      remat=True, num_classes=2)
+    assert isinstance(ref, RefUNet) and not hasattr(ref, "num_classes")
+    out = ref(torch.zeros(1, 8, 8, 1), torch.zeros(1, dtype=torch.long))
+    assert out.shape == (1, 8, 8, 1)
     tm = CondUNet(resolution=16, device="cpu", **TOY)
     with pytest.raises(ValueError, match="requires labels"):
         tm(torch.zeros(1, 16, 16, 1), torch.zeros(1, dtype=torch.long))

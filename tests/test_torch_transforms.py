@@ -14,6 +14,10 @@ from superdiff_torch.data.synthetic import synthetic_xray_batch
 
 torch.set_num_threads(1)
 
+# the JAX reference jitted: one compile per angle cap, where eager JAX
+# compiles every primitive apart (seconds per case)
+_j_rotate = jax.jit(jt._rotate_shear3, static_argnums=2)
+
 
 def _images(B=4, R=32, seed=0):
     imgs, _ = j_synth(B, R, seed=seed, normalization="minmax")
@@ -73,8 +77,8 @@ def test_rotate_shear3_matches_jax(max_deg):
     x = _images(B=3, R=32, seed=1)
     angles = np.deg2rad(np.array([max_deg, -max_deg / 3, 0.0])).astype(
         np.float32)
-    expect = np.asarray(jt._rotate_shear3(jnp.asarray(x), jnp.asarray(angles),
-                                          max_deg))
+    expect = np.asarray(_j_rotate(jnp.asarray(x), jnp.asarray(angles),
+                                  max_deg))
     got = tt._rotate_shear3(torch.from_numpy(x), torch.from_numpy(angles),
                             max_deg)
     np.testing.assert_allclose(got.numpy(), expect, atol=1e-5)
