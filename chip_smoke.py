@@ -13,7 +13,10 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    together; print the build time and the ptxas reports;
 3. kernels vs their plain versions on the card, bf16 and f32:
    (a) the forward (B1) at the path's shapes (batch 16, and the CFG 2B batch)
-       and at shapes with several K tiles, a ragged edge and D=128;
+       and at shapes with several K tiles, a ragged edge and D=128; a rerun
+       must give the same bits; each row carries the launch geometry
+       (ops/flash_attention.py::_fwd_geometry) and the instantiation's
+       registers, spills and resident blocks per SM;
    (b) the backward kernels dQ (B2) and dK/dV (B3) at the three path shapes
        and a ragged D=128 shape, with a non-contiguous dO;
    (c) the fused GroupNorm+FiLM+SiLU (B4) at the RefUNet's batch-16 shapes
@@ -22,7 +25,10 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    CUDA-event times of each kernel, its plain version and the library
    yardstick (F.scaled_dot_product_attention forward / backward for B1-B3;
    F.group_norm + F.silu for B4; timed only as yardsticks, the port never
-   calls them), and each kernel's own device time from the profiler;
+   calls them), each kernel's own device time from the profiler, and for
+   B1-B3 the device time of all kernels of the SDPA call (one
+   torch.autograd.grad for the backward), so that kernel and yardstick
+   compare device time with device time;
 4. the sampling slice through the user entry points: the full-width wide256
    CondUNet with seeded random weights on every leaf, written as an exported
    run dir and loaded back through superdiff_torch.inference.load_run:
@@ -93,6 +99,10 @@ import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+IN_CHECKOUT = os.path.isdir(os.path.join(HERE, "superdiff_torch"))
+if IN_CHECKOUT:
+    sys.path.insert(0, HERE)
+    from superdiff_torch.tools.timing import cuda_time_ms, kernel_device_ms
 KERNEL_SRC = "superdiff_torch/csrc/flash_attn_fwd.cu"
 TPU_KERNEL = "superdiff_tpu/ops/flash_attention.py:56"
 BWD_SRC = "superdiff_torch/csrc/flash_attn_bwd.cu"
@@ -158,42 +168,6 @@ def nvidia_smi(query):
     return res.stdout.strip().splitlines()[0]
 
 
-def cuda_time_ms(fn, iters, warmup=3):
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def kernel_device_ms(fn, iters=20, kernel=("flash_fwd_kernel",)):
-    """Device time per call of the kernels whose names contain one of
-    ``kernel`` (all kernels for ``None``; profiler kernel events): at small
-    shapes the CUDA-event time of back-to-back calls is set by the host
-    wrapper's enqueue rate, not by the kernel."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA
-             and (kernel is None or any(k in e.name for k in kernel)))
-    return us / 1e3 / iters if us else "not measured"
-
-
 def bound(B, S, H, D, dtype, sm_clock_hz, tensors=4, stats=1, products=2):
     """Least time for the function: bytes (each (B,S,H,D) tensor and each
     per-row f32 statistic moved once), tensor/FMA flops (2*S*S*D per head
@@ -241,21 +215,34 @@ def phase_kernels(fa, sm_clock_hz):
                 raise AssertionError(
                     f"flash kernel disagrees with plain at {(B, S, H, D)} "
                     f"{dname}: out err {err:.3e}, lse err {lse_err:.3e}")
+            out2, lse2 = fa._flash_forward(q, k, v)
+            if not (torch.equal(out, out2) and torch.equal(lse, lse2)):
+                raise AssertionError(f"flash kernel rerun at {(B, S, H, D)} "
+                                     f"{dname} gave other bits")
+            warps, bk, mt, grid, _ = fa._fwd_geometry(B, S, H, D,
+                                                      q.element_size())
             plain_iters = 5 if S >= 4096 else 20
             ms = cuda_time_ms(lambda: fa._flash_forward(q, k, v), 50)
             dev_ms = kernel_device_ms(lambda: fa._flash_forward(q, k, v))
             plain_ms = cuda_time_ms(
                 lambda: fa._flash_forward_plain(q, k, v), plain_iters)
             qh, kh, vh = (a.transpose(1, 2).contiguous() for a in (q, k, v))
-            lib_ms = cuda_time_ms(
-                lambda: F.scaled_dot_product_attention(qh, kh, vh), 50)
+            sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh)
+            lib_ms = cuda_time_ms(sdpa, 50)
+            lib_dev_ms = kernel_device_ms(sdpa, kernel=None)
             b_ms, b_by, b_detail = bound(B, S, H, D, dname, sm_clock_hz)
             row = dict(shape=[B, S, H, D], dtype=dname, max_abs_err=err,
-                       lse_max_abs_err=lse_err, ms=ms,
+                       lse_max_abs_err=lse_err, rerun_bit_equal=True, ms=ms,
                        kernel_device_ms=dev_ms, plain_ms=plain_ms,
-                       library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                       bound_resource=b_detail,
-                       roofline_share=b_ms / ms)
+                       library_ms=lib_ms, library_device_ms=lib_dev_ms,
+                       bound_ms=b_ms, bound_by=b_by,
+                       bound_resource=b_detail, roofline_share=b_ms / ms,
+                       device_roofline_share=b_ms / dev_ms
+                       if isinstance(dev_ms, float) else "not measured",
+                       geometry=dict(warps=warps, bk=bk, mt=mt,
+                                     grid=list(grid),
+                                     **fa.fwd_kernel_info(D, dtype, warps,
+                                                          bk, mt)))
             rows[(B, S, H, D, dname)] = row
             log("kernel_check " + json.dumps(row))
     return rows
@@ -303,8 +290,10 @@ def phase_bwd_kernels(fa, sm_clock_hz):
                           for a in (q, k, v))
             oh = F.scaled_dot_product_attention(qh, kh, vh)
             gh = g.transpose(1, 2).contiguous()
-            lib_ms = cuda_time_ms(lambda: torch.autograd.grad(
-                oh, (qh, kh, vh), gh, retain_graph=True), 30)
+            sdpa_bwd = lambda: torch.autograd.grad(oh, (qh, kh, vh), gh,
+                                                   retain_graph=True)
+            lib_ms = cuda_time_ms(sdpa_bwd, 30)
+            lib_dev_ms = kernel_device_ms(sdpa_bwd, kernel=None)
             for kern, kname, launch, plain, shape_kw in (
                     ("dq", "flash_bwd_dq_kernel", fa._flash_bwd_dq_cuda,
                      fa._flash_bwd_dq_plain,
@@ -324,6 +313,7 @@ def phase_bwd_kernels(fa, sm_clock_hz):
                 row = dict(kernel=kern, shape=[B, S, H, D], dtype=dname,
                            max_abs_err=err, ms=ms, kernel_device_ms=dev_ms,
                            plain_ms=plain_ms, library_ms=lib_ms,
+                           library_device_ms=lib_dev_ms,
                            library="SDPA backward (dQ, dK and dV together)",
                            bound_ms=b_ms, bound_by=b_by,
                            bound_resource=b_detail, roofline_share=b_ms / ms)
@@ -464,8 +454,11 @@ def wide256_norm_chains(fn, model):
                        max_abs_diff=(chain().float() - kern().float()
                                      ).abs().max().item())
         for k in ("", "device_"):
-            saved[k] = saved.get(k, 0.0) + count * (
-                row[f"chain_{k}ms"] - row[f"b4_{k}ms"])
+            a, b = row[f"chain_{k}ms"], row[f"b4_{k}ms"]
+            measured = isinstance(a, float) and isinstance(b, float)
+            saved[k] = (saved.get(k, 0.0) + count * (a - b)
+                        if measured and saved.get(k, 0.0) != "not measured"
+                        else "not measured")
         rows.append(row)
         log("wide256_chain " + json.dumps(row))
     return dict(rows=rows, chains_per_call=sum(r["launches_per_call"]
@@ -1148,11 +1141,10 @@ def check_launches(fa, calls, what):
 
 
 def main() -> int:
-    if not os.path.isdir(os.path.join(HERE, "superdiff_torch")):
+    if not IN_CHECKOUT:
         print("chip_smoke.py must run from a checkout of the repository "
               "(no superdiff_torch/ beside it)", file=sys.stderr)
         return 2
-    sys.path.insert(0, HERE)
     import numpy as np
     import torch
 
@@ -1305,8 +1297,10 @@ def main() -> int:
             launches=main_launches.get((S, D, "bfloat16"), 0),
             train_launches=train_launches["fwd"].get((S, D, "bfloat16"), 0),
             max_abs_err=row["max_abs_err"], ms=row["ms"],
+            kernel_device_ms=row["kernel_device_ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-            bound_by=row["bound_by"], library_ms=row["library_ms"]))
+            bound_by=row["bound_by"], library_ms=row["library_ms"],
+            library_device_ms=row["library_device_ms"]))
         if not (kernels[-1]["launches"] and kernels[-1]["train_launches"]):
             raise AssertionError(f"path shape {(B, S, H, D)} never launched")
     for kern, name, replaces in (("dq", "flash_attn_bwd_dq", TPU_BWD_DQ),
@@ -1318,8 +1312,10 @@ def main() -> int:
                 source=BWD_SRC, replaces=replaces,
                 launches=train_launches[kern].get((S, D, "bfloat16"), 0),
                 max_abs_err=row["max_abs_err"], ms=row["ms"],
+                kernel_device_ms=row["kernel_device_ms"],
                 plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-                bound_by=row["bound_by"], library_ms=row["library_ms"]))
+                bound_by=row["bound_by"], library_ms=row["library_ms"],
+                library_device_ms=row["library_device_ms"]))
             if kernels[-1]["launches"] == 0:
                 raise AssertionError(f"{name} never launched at path shape "
                                      f"{(B, S, H, D)} in training")

@@ -42,22 +42,24 @@ def _nvcc() -> str:
                        "are compiled at first use")
 
 
-def build(which: str, verbose: bool = False) -> Path:
+def build(which: str, verbose: bool = False, defines=()) -> Path:
     """Compile one kernel source (a key of ``SOURCES``; once per source
-    hash) and return the .so path.
+    hash and flags) and return the .so path.
 
     ``verbose=True`` adds ``-Xptxas -v`` and prints the compiler's report
-    (registers, shared memory, spills per instantiation)."""
+    (registers, shared memory, spills per instantiation). ``defines`` are
+    extra preprocessor macros (``-D``), for a variant build of a tool."""
     source = SOURCES[which]
     src = source.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
+    tag = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
     so = _BUILD_DIR / f"{source.stem}_{tag}.so"
     if so.exists() and not verbose:
         return so
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+    cmd = [_nvcc(), *flags, *(["-Xptxas", "-v"] if verbose else []),
            "-o", tmp, str(source)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
@@ -77,15 +79,16 @@ def build_all(verbose: bool = False) -> dict:
         return {w: f.result() for w, f in futures.items()}
 
 
-def load(which: str, argtypes: dict):
-    """The ``ctypes`` library of one source, built at first use.
-    ``argtypes`` maps each C function to its argument types; every one
-    returns an ``int`` (a CUDA error code)."""
-    if which not in _libs:
-        lib = ctypes.CDLL(str(build(which)))
+def load(which: str, argtypes: dict, defines=()):
+    """The ``ctypes`` library of one source (built with ``defines``), built
+    at first use. ``argtypes`` maps each C function to its argument types;
+    every one returns an ``int`` (a CUDA error code)."""
+    key = (which, tuple(defines))
+    if key not in _libs:
+        lib = ctypes.CDLL(str(build(which, defines=defines)))
         for name, types in argtypes.items():
             fn = getattr(lib, name)
             fn.argtypes = types
             fn.restype = ctypes.c_int
-        _libs[which] = lib
-    return _libs[which]
+        _libs[key] = lib
+    return _libs[key]

@@ -59,12 +59,15 @@ def _shape_key(q) -> tuple:
     return (q.shape[1], q.shape[3], str(q.dtype).replace("torch.", ""))
 
 
-def _load(which: str):
+def _load(which: str, defines=()):
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     tail = [i32] * 5 + [ctypes.c_float, ptr, ptr]
     if which == "fwd":
-        return _build.load("fwd",
-                           {"superdiff_flash_attn_fwd": [ptr] * 5 + tail})
+        return _build.load("fwd", {
+            "superdiff_flash_attn_fwd":
+                [ptr] * 5 + [i32] * 5 + [ctypes.c_float, ptr] + [i32] * 3
+                + [ptr],
+            "superdiff_flash_attn_fwd_info": [i32] * 5 + [ptr]}, defines)
     return _build.load("bwd",
                        {"superdiff_flash_attn_bwd_dq": [ptr] * 7 + tail,
                         "superdiff_flash_attn_bwd_dkv": [ptr] * 8 + tail})
@@ -101,30 +104,111 @@ def _check_kernel_layout(**tensors):
                              f"divisible by {16 // a.element_size()} elements")
 
 
-def _flash_forward_cuda(q, k, v):
+# ---------------------------------------------------- forward launch geometry
+
+NUM_SMS = 132                # H100 SXM
+MAX_SMEM = 232448            # shared memory one block may use (227 KB)
+_MAX_GRID_Y = 65535
+_MAX_GRID_X = 2 ** 31 - 1
+_FWD_MAX_WARPS = 8
+_FWD_STAGES = 2              # K/V ring depth of the forward kernel
+_FWD_MIN_BLOCKS = 64         # about half the SMs
+# (keys per K/V tile, 16-row m-tiles per warp) by (dtype code, D): the
+# instantiations the forward kernel is built with (csrc/flash_attn_fwd.cu,
+# SUPERDIFF_FWD_TILES), the fastest of tools/tune_flash_fwd.py --sweep at
+# the wide256 path shapes (PERF.md)
+_FWD_TILE = {(0, 32): (32, 2), (0, 64): (64, 1), (0, 128): (64, 1),
+             (1, 32): (64, 1), (1, 64): (64, 1), (1, 128): (32, 1)}
+
+
+def _fwd_row_bytes(D: int, elem_size: int) -> int:
+    """Shared-memory row stride of the forward kernel's Q, K and V tiles:
+    one row padded by 16 bytes."""
+    return D * elem_size + 16
+
+
+def _fwd_smem_bytes(D: int, elem_size: int, warps: int, bk: int,
+                    mt: int) -> int:
+    """Dynamic shared memory of the forward kernel (its ``Layout``): the Q
+    tile (16 * mt rows per warp), two stages of K and V tiles, and for
+    float32 a per-warp P buffer of 16 x (bk + 4) floats."""
+    row = _fwd_row_bytes(D, elem_size)
+    p_warp = 16 * (bk + 4) * 4 if elem_size == 4 else 0
+    return 16 * mt * warps * row + _FWD_STAGES * 2 * bk * row + warps * p_warp
+
+
+def _fwd_geometry(B: int, S: int, H: int, D: int, elem_size: int):
+    """Launch geometry of the forward kernel: ``(warps, bk, mt, grid,
+    smem)``.
+
+    Each warp owns ``16 * mt`` query rows; ``bk`` keys per K/V tile and
+    ``mt`` by dtype and D (``_FWD_TILE``). The block takes as many warps (a
+    power of two up to 8) as its query tile can have without growing past
+    S or leaving fewer than half the SMs a block: a taller tile reads K and
+    V from L2 fewer times, and at the short path shapes the fewer, fuller
+    blocks measured faster than a grid cut to more blocks than SMs
+    (PERF.md). ``grid = (B*H, query tiles)``."""
+    code = 0 if elem_size == 2 else 1
+    bk, mt = _FWD_TILE[(code, D)]
+    warps = 1
+    while (2 * warps <= _FWD_MAX_WARPS and 32 * mt * warps <= S
+           and B * H * -(-S // (32 * mt * warps)) >= _FWD_MIN_BLOCKS):
+        warps *= 2
+    grid = (B * H, -(-S // (16 * mt * warps)))
+    if grid[0] > _MAX_GRID_X or grid[1] > _MAX_GRID_Y:
+        raise ValueError(f"flash kernel grid {grid} out of range for "
+                         f"B*H={B * H}, S={S}")
+    return warps, bk, mt, grid, _fwd_smem_bytes(D, elem_size, warps, bk, mt)
+
+
+def _launch_fwd(q, k, v, warps: int, bk: int, mt: int, defines=()):
+    """One launch of the forward kernel at the given geometry, from the
+    library built with ``defines``; inputs already checked by the
+    caller."""
     B, S, H, D = q.shape
-    if not kernel_supports(q):
-        raise ValueError(f"flash kernel takes D in {SUPPORTED_HEAD_DIMS} and "
-                         f"bfloat16/float32, got D={D} {q.dtype}")
-    _check_kernel_layout(q=q, k=k, v=v)
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B * H, S), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _load("fwd").superdiff_flash_attn_fwd(
+        err = _load("fwd", defines).superdiff_flash_attn_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), B, S, H, D, _DTYPE_CODE[q.dtype],
-            1.0 / math.sqrt(D), strides, stream)
+            1.0 / math.sqrt(D), strides, warps, bk, mt, stream)
     if err != 0:
         raise RuntimeError(f"flash_attn_fwd launch failed: CUDA error {err} "
-                           f"(shape {tuple(q.shape)}, {q.dtype})")
+                           f"(shape {tuple(q.shape)}, {q.dtype}, warps "
+                           f"{warps}, bk {bk}, mt {mt})")
     global launches
     launches += 1
     key = _shape_key(q)
     launches_by_shape[key] = launches_by_shape.get(key, 0) + 1
     return out, lse
+
+
+def fwd_kernel_info(D: int, dtype: torch.dtype, warps: int, bk: int,
+                    mt: int, defines=()) -> dict:
+    """What the compiler and the occupancy calculator say of one forward
+    instantiation (needs the card): dynamic shared bytes, registers and
+    spill (local) bytes per thread, resident blocks per SM."""
+    res = (ctypes.c_int * 4)()
+    err = _load("fwd", defines).superdiff_flash_attn_fwd_info(
+        D, _DTYPE_CODE[dtype], warps, bk, mt, res)
+    if err != 0:
+        raise RuntimeError(f"flash_attn_fwd_info failed: CUDA error {err}")
+    return dict(smem_bytes=res[0], registers=res[1], spill_bytes=res[2],
+                blocks_per_sm=res[3], warps_per_sm=res[3] * warps)
+
+
+def _flash_forward_cuda(q, k, v):
+    B, S, H, D = q.shape
+    if not kernel_supports(q):
+        raise ValueError(f"flash kernel takes D in {SUPPORTED_HEAD_DIMS} and "
+                         f"bfloat16/float32, got D={D} {q.dtype}")
+    _check_kernel_layout(q=q, k=k, v=v)
+    warps, bk, mt, _, _ = _fwd_geometry(B, S, H, D, q.element_size())
+    return _launch_fwd(q, k, v, warps, bk, mt)
 
 
 def _flash_forward_plain(q, k, v):

@@ -15,7 +15,10 @@ first slice of the port already had: an exported run dir of seeded random
 weights, ``load_run`` and ``apply_sampling_policy``. It prints one JSON line:
 the CUDA-event time per call at batch 16 and 256² (``--repeats`` groups of
 ``--calls`` calls: min, median, max), the device-busy time per call from
-``torch.profiler``, and the card's name and power limit.
+``torch.profiler``, the CUDA-event time of back-to-back calls of the
+attention forward wrapper (``ops/flash_attention.py::_flash_forward``) at
+the model's three attention shapes (the host's enqueue cost where it
+exceeds the kernel's), and the card's name and power limit.
 """
 
 import argparse
@@ -87,6 +90,22 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
     busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
                   if e.device_type == DeviceType.CUDA)
+    from superdiff_torch.ops import flash_attention as fa
+
+    fwd_us = {}
+    for S, D in ((1024, 32), (256, 64), (64, 64)):
+        qkv = torch.randn((B, S, 12 * D), device="cuda").to(torch.bfloat16)
+        q, k, v = (a.view(B, S, 4, D) for a in qkv.split(4 * D, dim=-1))
+        for _ in range(10):
+            fa._flash_forward(q, k, v)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(500):
+            fa._flash_forward(q, k, v)
+        end.record()
+        torch.cuda.synchronize()
+        fwd_us[f"S{S}_D{D}"] = start.elapsed_time(end) * 1e3 / 500
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
@@ -95,7 +114,7 @@ def main(argv=None) -> int:
         call_ms_min=min(times), call_ms_median=statistics.median(times),
         call_ms_max=max(times),
         device_busy_ms_per_call=busy_us / 1e3 / 5 if busy_us
-        else "not measured")))
+        else "not measured", attention_fwd_call_us=fwd_us)))
     return 0
 
 

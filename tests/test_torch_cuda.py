@@ -35,11 +35,15 @@ def _fused_qkv(B, S, H, D, dtype, dev, seed=0):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("B,S,H,D", [(2, 1024, 4, 32), (2, 256, 4, 64),
                                      (2, 64, 4, 64), (1, 1000, 2, 128),
-                                     (1, 70, 1, 32)])
+                                     (1, 70, 1, 32), (3, 1, 2, 32),
+                                     (2, 17, 4, 64), (1, 63, 2, 128),
+                                     (2, 65, 1, 32), (1, 1000, 1, 64)])
 def test_kernel_matches_plain_on_card(cuda, B, S, H, D, dtype):
-    """Tolerance: bf16 output rounding (2^-8 relative) plus P rounded to
+    """Ragged S (1, 17, 63, 65, 70, 1000: partial query and key tiles),
+    D=128. Tolerance: bf16 output rounding (2^-8 relative) plus P rounded to
     bf16 at slightly different offsets -> 2e-2; f32 -> 1e-4; lse is f32 in
-    both (exp2 with the log2(e) factor folded in) -> 1e-4."""
+    both (exp2 with the log2(e) factor folded in) -> 1e-4. A rerun gives the
+    same bits."""
     q, k, v = _fused_qkv(B, S, H, D, dtype, cuda)
     before = fa.launches
     out, lse = fa._flash_forward(q, k, v)
@@ -51,6 +55,8 @@ def test_kernel_matches_plain_on_card(cuda, B, S, H, D, dtype):
     torch.testing.assert_close(out.float(), ref_out.float(), rtol=tol,
                                atol=tol)
     torch.testing.assert_close(lse, ref_lse, rtol=1e-4, atol=1e-4)
+    out2, lse2 = fa._flash_forward(q, k, v)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
 
 
 @pytest.mark.cuda
@@ -68,6 +74,59 @@ def test_wrapper_rules_on_card(cuda):
     odd = buf.as_strided((1, 64, 2, 32), (64 * 97, 97, 32, 1))
     with pytest.raises(ValueError, match="aligned"):
         fa._flash_forward(odd, k, v)        # row stride 97 floats: no 16 B
+
+
+@pytest.mark.cuda
+def test_kernel_takes_more_than_65535_batch_heads_on_card(cuda):
+    """B*H = 65,600 goes on grid x; rows of every (b, h) agree with the
+    plain version (bf16 tolerance as above)."""
+    B, S, H, D = 16400, 17, 4, 32
+    q, k, v = _fused_qkv(B, S, H, D, torch.bfloat16, cuda)
+    assert fa._fwd_geometry(B, S, H, D, 2)[3][0] == B * H > 65535
+    out, lse = fa._flash_forward(q, k, v)
+    ref_out, ref_lse = fa._flash_forward_plain(q, k, v)
+    torch.testing.assert_close(out.float(), ref_out.float(), rtol=2e-2,
+                               atol=2e-2)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("code,D", sorted(fa._FWD_TILE))
+def test_forward_instantiations_fit_without_spills_on_card(cuda, code, D):
+    """Every built (dtype, D, bk, mt) at 1-8 warps: the kernel's shared
+    memory is what ``_fwd_smem_bytes`` says, no register spills, at most
+    255 registers, at least one resident block per SM."""
+    dtype = torch.bfloat16 if code == 0 else torch.float32
+    elem = 2 if code == 0 else 4
+    bk, mt = fa._FWD_TILE[(code, D)]
+    for warps in (1, 2, 4, 8):
+        info = fa.fwd_kernel_info(D, dtype, warps, bk, mt)
+        key = (bk, mt, warps, info)
+        assert info["smem_bytes"] == fa._fwd_smem_bytes(
+            D, elem, warps, bk, mt), key
+        assert info["spill_bytes"] == 0 and info["registers"] <= 255, key
+        assert info["blocks_per_sm"] >= 1, key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_every_built_geometry_matches_plain_on_card(cuda, dtype):
+    """Each D's built (bk, mt) at 1, 2, 4 and 8 warps, at a ragged S
+    (partial query and key tiles): agrees with the plain version
+    (tolerances as above) and reruns bit for bit."""
+    code = fa._DTYPE_CODE[dtype]
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    for D in fa.SUPPORTED_HEAD_DIMS:
+        q, k, v = _fused_qkv(2, 150, 2, D, dtype, cuda)
+        ref_out, ref_lse = fa._flash_forward_plain(q, k, v)
+        bk, mt = fa._FWD_TILE[(code, D)]
+        for warps in (1, 2, 4, 8):
+            out, lse = fa._launch_fwd(q, k, v, warps, bk, mt)
+            torch.testing.assert_close(out.float(), ref_out.float(),
+                                       rtol=tol, atol=tol)
+            torch.testing.assert_close(lse, ref_lse, rtol=1e-4, atol=1e-4)
+            out2, lse2 = fa._launch_fwd(q, k, v, warps, bk, mt)
+            assert torch.equal(out, out2) and torch.equal(lse, lse2)
 
 
 @pytest.mark.cuda
