@@ -18,7 +18,13 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
        (ops/flash_attention.py::_fwd_geometry) and the instantiation's
        registers, spills and resident blocks per SM;
    (b) the backward kernels dQ (B2) and dK/dV (B3) at the three path shapes
-       and a ragged D=128 shape, with a non-contiguous dO;
+       and a ragged D=128 shape, with a non-contiguous dO; a rerun must
+       give the same bits; each row carries the launch geometry
+       (ops/flash_attention.py::_bwd_geometry) and the instantiation's
+       registers, spills and resident blocks per SM, the device time of
+       the delta = rowsum(dO o O) expression that feeds both kernels, and
+       B2 + B3 + delta beside SDPA's whole backward (which has its own
+       delta pass);
    (c) the fused GroupNorm+FiLM+SiLU (B4) at the RefUNet's batch-16 shapes
        (C, G) = (1, 1), (64, 4), (128, 4), FiLM cases, group widths 3 and
        12, a ragged 7x9 image; a rerun must give the same bits;
@@ -285,6 +291,8 @@ def phase_bwd_kernels(fa, sm_clock_hz):
                         f"{name} disagrees with plain at {(B, S, H, D)} "
                         f"{dname}: err {err:.3e}, largest entry {peak:.3e}")
             delta = fa._bwd_delta(out, g)
+            delta_dev_ms = kernel_device_ms(lambda: fa._bwd_delta(out, g),
+                                            kernel=None)
             plain_iters = 10
             qh, kh, vh = (a.transpose(1, 2).contiguous().requires_grad_()
                           for a in (q, k, v))
@@ -294,30 +302,57 @@ def phase_bwd_kernels(fa, sm_clock_hz):
                                                    retain_graph=True)
             lib_ms = cuda_time_ms(sdpa_bwd, 30)
             lib_dev_ms = kernel_device_ms(sdpa_bwd, kernel=None)
-            for kern, kname, launch, plain, shape_kw in (
+            shape_rows = []
+            for kern, kname, launch, plain, shape_kw, mine in (
                     ("dq", "flash_bwd_dq_kernel", fa._flash_bwd_dq_cuda,
                      fa._flash_bwd_dq_plain,
-                     dict(tensors=5, stats=2, products=3)),
+                     dict(tensors=5, stats=2, products=3), got[:1]),
                     ("dkv", "flash_bwd_dkv_kernel", fa._flash_bwd_dkv_cuda,
                      fa._flash_bwd_dkv_plain,
-                     dict(tensors=6, stats=2, products=4))):
+                     dict(tensors=6, stats=2, products=4), got[1:])):
                 call = lambda: launch(q, k, v, g, lse, delta)
+                again = call()
+                again = (again,) if kern == "dq" else again
+                if not all(torch.equal(a, b) for a, b in zip(mine, again)):
+                    raise AssertionError(f"{kern} rerun at {(B, S, H, D)} "
+                                         f"{dname} gave other bits")
                 ms = cuda_time_ms(call, 50)
                 dev_ms = kernel_device_ms(call, kernel=(kname,))
                 plain_ms = cuda_time_ms(
                     lambda: plain(q, k, v, g, lse, delta), plain_iters)
                 b_ms, b_by, b_detail = bound(B, S, H, D, dname, sm_clock_hz,
                                              **shape_kw)
+                warps, bt, mt, grid, _ = fa._bwd_geometry(
+                    kern, B, S, H, D, q.element_size())
                 err = errs["dq"] if kern == "dq" else max(errs["dk"],
                                                           errs["dv"])
                 row = dict(kernel=kern, shape=[B, S, H, D], dtype=dname,
-                           max_abs_err=err, ms=ms, kernel_device_ms=dev_ms,
-                           plain_ms=plain_ms, library_ms=lib_ms,
-                           library_device_ms=lib_dev_ms,
+                           max_abs_err=err, rerun_bit_equal=True, ms=ms,
+                           kernel_device_ms=dev_ms, plain_ms=plain_ms,
+                           library_ms=lib_ms, library_device_ms=lib_dev_ms,
                            library="SDPA backward (dQ, dK and dV together)",
                            bound_ms=b_ms, bound_by=b_by,
-                           bound_resource=b_detail, roofline_share=b_ms / ms)
+                           bound_resource=b_detail, roofline_share=b_ms / ms,
+                           device_roofline_share=b_ms / dev_ms
+                           if isinstance(dev_ms, float) else "not measured",
+                           delta_device_ms=delta_dev_ms,
+                           geometry=dict(warps=warps, bt=bt, mt=mt,
+                                         grid=list(grid),
+                                         **fa.bwd_kernel_info(
+                                             kern, D, dtype, warps, bt, mt)))
                 rows[(kern, B, S, H, D, dname)] = row
+                shape_rows.append(row)
+            # B2 + B3 + delta against SDPA's whole backward, which includes
+            # its own delta pass: device time against device time
+            parts = [r["kernel_device_ms"] for r in shape_rows]
+            parts.append(delta_dev_ms)
+            total = (sum(parts) if all(isinstance(x, float) for x in parts)
+                     else "not measured")
+            for row in shape_rows:
+                row["b2_b3_delta_device_ms"] = total
+                row["ratio_to_library_device"] = (
+                    total / lib_dev_ms if isinstance(total, float)
+                    and isinstance(lib_dev_ms, float) else "not measured")
                 log("bwd_kernel_check " + json.dumps(row))
     return rows
 

@@ -505,7 +505,8 @@ cudaError_t info(int warps, int* res) {
 // 1 = float32. The launch geometry takes one (BK, MT) per dtype and D,
 // mirrored by ops/flash_attention.py::_FWD_TILE. A build with
 // -DSUPERDIFF_FWD_SWEEP adds the other tiles that
-// tools/tune_flash_fwd.py --sweep measures (its SWEEP_TILES).
+// tools/tune_flash_fwd.py --sweep measures (it reads them from
+// SUPERDIFF_FWD_CASES here).
 #define SUPERDIFF_FWD_TILES(X)                                                \
   X(0, __nv_bfloat16, 32, 32, 2) X(0, __nv_bfloat16, 64, 64, 1)               \
   X(0, __nv_bfloat16, 128, 64, 1)                                             \

@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -70,6 +71,18 @@ def build(which: str, verbose: bool = False, defines=()) -> Path:
         print(res.stdout + res.stderr)
     os.replace(tmp, so)
     return so
+
+
+def source_tiles(which: str, macro: str) -> list:
+    """The ``X(...)`` entries of the first ``#define macro(X)`` of one
+    kernel source (a key of ``SOURCES``), as tuples of their integer
+    arguments (type arguments dropped): the instantiations a build makes."""
+    src = SOURCES[which].read_text()
+    body = re.search(rf"#define {macro}\(X\)(.*?)(?:\n#|\Z)", src, re.S)
+    if body is None:
+        raise ValueError(f"{SOURCES[which].name} defines no {macro}(X)")
+    return [tuple(int(a) for a in args.split(",") if a.strip().isdigit())
+            for args in re.findall(r"X\(([^)]*)\)", body.group(1))]
 
 
 def build_all(verbose: bool = False) -> dict:

@@ -19,6 +19,12 @@ Contracts:
   contiguous copy. ``delta = rowsum(g * out)`` is a short torch expression
   here, as it is an XLA expression in the reference.
 
+Each kernel's launch geometry (warps per block, the tile it loops over,
+m-tiles per warp) is a Python function of the shape,
+:func:`_fwd_geometry` and :func:`_bwd_geometry`, over the tiles the kernels
+are built with (``_FWD_TILE``, ``_BWD_TILE``), as measured by
+``tools/tune_flash_fwd.py`` and ``tools/tune_flash_bwd.py``.
+
 A CUDA tensor launches the kernels or raises; a CPU tensor takes the plain
 versions (:func:`_flash_forward_plain`, :func:`_flash_backward_plain`), the
 same functions in plain PyTorch with the kernels' roundings. ``launches``,
@@ -61,16 +67,15 @@ def _shape_key(q) -> tuple:
 
 def _load(which: str, defines=()):
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    tail = [i32] * 5 + [ctypes.c_float, ptr, ptr]
+    tail = [i32] * 5 + [ctypes.c_float, ptr] + [i32] * 3 + [ptr]
     if which == "fwd":
         return _build.load("fwd", {
-            "superdiff_flash_attn_fwd":
-                [ptr] * 5 + [i32] * 5 + [ctypes.c_float, ptr] + [i32] * 3
-                + [ptr],
+            "superdiff_flash_attn_fwd": [ptr] * 5 + tail,
             "superdiff_flash_attn_fwd_info": [i32] * 5 + [ptr]}, defines)
-    return _build.load("bwd",
-                       {"superdiff_flash_attn_bwd_dq": [ptr] * 7 + tail,
-                        "superdiff_flash_attn_bwd_dkv": [ptr] * 8 + tail})
+    return _build.load("bwd", {
+        "superdiff_flash_attn_bwd_dq": [ptr] * 7 + tail,
+        "superdiff_flash_attn_bwd_dkv": [ptr] * 8 + tail,
+        "superdiff_flash_attn_bwd_info": [i32] * 6 + [ptr]}, defines)
 
 
 def _check(q, k, v):
@@ -104,15 +109,15 @@ def _check_kernel_layout(**tensors):
                              f"divisible by {16 // a.element_size()} elements")
 
 
-# ---------------------------------------------------- forward launch geometry
+# ------------------------------------------------------------ launch geometry
 
 NUM_SMS = 132                # H100 SXM
 MAX_SMEM = 232448            # shared memory one block may use (227 KB)
 _MAX_GRID_Y = 65535
 _MAX_GRID_X = 2 ** 31 - 1
-_FWD_MAX_WARPS = 8
+_MAX_WARPS = 8               # warps per block, every kernel
 _FWD_STAGES = 2              # K/V ring depth of the forward kernel
-_FWD_MIN_BLOCKS = 64         # about half the SMs
+_MIN_BLOCKS = 64             # about half the SMs
 # (keys per K/V tile, 16-row m-tiles per warp) by (dtype code, D): the
 # instantiations the forward kernel is built with (csrc/flash_attn_fwd.cu,
 # SUPERDIFF_FWD_TILES), the fastest of tools/tune_flash_fwd.py --sweep at
@@ -121,8 +126,8 @@ _FWD_TILE = {(0, 32): (32, 2), (0, 64): (64, 1), (0, 128): (64, 1),
              (1, 32): (64, 1), (1, 64): (64, 1), (1, 128): (32, 1)}
 
 
-def _fwd_row_bytes(D: int, elem_size: int) -> int:
-    """Shared-memory row stride of the forward kernel's Q, K and V tiles:
+def _row_bytes(D: int, elem_size: int) -> int:
+    """Shared-memory row stride of the flash kernels' Q, K, V and dO tiles:
     one row padded by 16 bytes."""
     return D * elem_size + 16
 
@@ -132,7 +137,7 @@ def _fwd_smem_bytes(D: int, elem_size: int, warps: int, bk: int,
     """Dynamic shared memory of the forward kernel (its ``Layout``): the Q
     tile (16 * mt rows per warp), two stages of K and V tiles, and for
     float32 a per-warp P buffer of 16 x (bk + 4) floats."""
-    row = _fwd_row_bytes(D, elem_size)
+    row = _row_bytes(D, elem_size)
     p_warp = 16 * (bk + 4) * 4 if elem_size == 4 else 0
     return 16 * mt * warps * row + _FWD_STAGES * 2 * bk * row + warps * p_warp
 
@@ -150,15 +155,25 @@ def _fwd_geometry(B: int, S: int, H: int, D: int, elem_size: int):
     (PERF.md). ``grid = (B*H, query tiles)``."""
     code = 0 if elem_size == 2 else 1
     bk, mt = _FWD_TILE[(code, D)]
+    warps, grid = _row_tiles(B, S, H, mt, "flash kernel")
+    return warps, bk, mt, grid, _fwd_smem_bytes(D, elem_size, warps, bk, mt)
+
+
+def _row_tiles(B: int, S: int, H: int, mt: int, what: str):
+    """Warps per block and grid of a kernel whose warps own ``16 * mt``
+    rows each: as many warps (a power of two up to 8) as the row tile can
+    have without growing past S or leaving fewer than ``_MIN_BLOCKS``
+    blocks; ``grid = (B*H, row tiles)``, checked against the card's
+    limits."""
     warps = 1
-    while (2 * warps <= _FWD_MAX_WARPS and 32 * mt * warps <= S
-           and B * H * -(-S // (32 * mt * warps)) >= _FWD_MIN_BLOCKS):
+    while (2 * warps <= _MAX_WARPS and 32 * mt * warps <= S
+           and B * H * -(-S // (32 * mt * warps)) >= _MIN_BLOCKS):
         warps *= 2
     grid = (B * H, -(-S // (16 * mt * warps)))
     if grid[0] > _MAX_GRID_X or grid[1] > _MAX_GRID_Y:
-        raise ValueError(f"flash kernel grid {grid} out of range for "
+        raise ValueError(f"{what} grid {grid} out of range for "
                          f"B*H={B * H}, S={S}")
-    return warps, bk, mt, grid, _fwd_smem_bytes(D, elem_size, warps, bk, mt)
+    return warps, grid
 
 
 def _launch_fwd(q, k, v, warps: int, bk: int, mt: int, defines=()):
@@ -242,47 +257,123 @@ def _bwd_strides(*tensors):
     return (ctypes.c_longlong * len(flat))(*flat)
 
 
+# ---------------------------------------------------- backward launch geometry
+
+_BWD_KERNELS = ("dq", "dkv")
+_BWD_STAGES = 2              # looped-tile ring depth of both backward kernels
+# The (looped rows per tile, 16-row m-tiles per warp) built by (dtype code,
+# D, kernel), shortest tile first: the instantiations of
+# csrc/flash_attn_bwd.cu (SUPERDIFF_BWD_TILES), the fastest of
+# tools/tune_flash_bwd.py --sweep at the wide256 path shapes (PERF.md). The
+# looped tile is keys for dQ and queries for dK/dV.
+_BWD_TILE = {(0, 32, "dq"): ((128, 2),), (0, 64, "dq"): ((64, 1), (128, 1)),
+             (0, 128, "dq"): ((64, 1),),
+             (1, 32, "dq"): ((64, 1),), (1, 64, "dq"): ((64, 1),),
+             (1, 128, "dq"): ((32, 1),),
+             (0, 32, "dkv"): ((128, 2),),
+             (0, 64, "dkv"): ((64, 1), (128, 1)),
+             (0, 128, "dkv"): ((64, 1),),
+             (1, 32, "dkv"): ((64, 1),), (1, 64, "dkv"): ((64, 1),),
+             (1, 128, "dkv"): ((32, 1),)}
+
+
+def _bwd_smem_bytes(kernel: str, D: int, elem_size: int, warps: int,
+                    bt: int, mt: int) -> int:
+    """Dynamic shared memory of a backward kernel (its ``Layout``): the
+    block's two owned tiles (Q and dO for dQ, K and V for dK/dV; 16 * mt
+    rows per warp each), two stages of the two looped tiles (bt rows each),
+    for dK/dV also the looped queries' lse and delta (bt floats each) per
+    stage, and for float32 a per-warp P / dS buffer of 16 x 20 floats.
+    Rows are padded by 16 bytes, as in the forward kernel."""
+    row = _row_bytes(D, elem_size)
+    stage = 2 * bt * row + (2 * bt * 4 if kernel == "dkv" else 0)
+    p_warp = 16 * 20 * 4 if elem_size == 4 else 0
+    return (2 * 16 * mt * warps * row + _BWD_STAGES * stage
+            + warps * p_warp)
+
+
+def _bwd_geometry(kernel: str, B: int, S: int, H: int, D: int,
+                  elem_size: int):
+    """Launch geometry of a backward kernel (``"dq"`` or ``"dkv"``):
+    ``(warps, bt, mt, grid, smem)``.
+
+    Each warp owns ``16 * mt`` rows (queries for dQ, keys for dK/dV) and
+    loops over the other side in tiles of ``bt`` rows. ``(bt, mt)`` is the
+    tallest tile built for the dtype, D and kernel (``_BWD_TILE``) that S
+    fills, else the shortest: a taller looped tile only loads rows past S
+    (bf16 D=64: 64 rows at S=64, 128 at S=256). Warps and grid as for the
+    forward kernel (``_row_tiles``)."""
+    if kernel not in _BWD_KERNELS:
+        raise ValueError(f"backward kernel is one of {_BWD_KERNELS}, got "
+                         f"{kernel!r}")
+    code = 0 if elem_size == 2 else 1
+    tiles = _BWD_TILE[(code, D, kernel)]
+    bt, mt = ([t for t in tiles if t[0] <= S] or tiles[:1])[-1]
+    warps, grid = _row_tiles(B, S, H, mt, "flash backward")
+    return (warps, bt, mt, grid,
+            _bwd_smem_bytes(kernel, D, elem_size, warps, bt, mt))
+
+
+def _launch_bwd(kernel: str, q, k, v, g, lse, delta, warps: int, bt: int,
+                mt: int, defines=()):
+    """One launch of the dQ kernel (``kernel="dq"``, returns ``dq``) or the
+    dK/dV kernel (``"dkv"``, returns ``(dk, dv)``) at the given geometry,
+    from the library built with ``defines``; inputs already checked by the
+    caller."""
+    global bwd_dq_launches, bwd_dkv_launches
+    B, S, H, D = q.shape
+    outs = [torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+            for _ in range(1 if kernel == "dq" else 2)]
+    fn = getattr(_load("bwd", defines),
+                 f"superdiff_flash_attn_bwd_{kernel}")
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(),
+                 *(o.data_ptr() for o in outs), B, S, H, D,
+                 _DTYPE_CODE[q.dtype], 1.0 / math.sqrt(D),
+                 _bwd_strides(q, k, v, g, *outs), warps, bt, mt,
+                 torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attn_bwd_{kernel} launch failed: CUDA "
+                           f"error {err} (shape {tuple(q.shape)}, {q.dtype}, "
+                           f"warps {warps}, bt {bt}, mt {mt})")
+    key = _shape_key(q)
+    if kernel == "dq":
+        bwd_dq_launches += 1
+        counts = bwd_dq_launches_by_shape
+    else:
+        bwd_dkv_launches += 1
+        counts = bwd_dkv_launches_by_shape
+    counts[key] = counts.get(key, 0) + 1
+    return outs[0] if kernel == "dq" else tuple(outs)
+
+
+def bwd_kernel_info(kernel: str, D: int, dtype: torch.dtype, warps: int,
+                    bt: int, mt: int, defines=()) -> dict:
+    """What the compiler and the occupancy calculator say of one backward
+    instantiation (needs the card): dynamic shared bytes, registers and
+    spill (local) bytes per thread, resident blocks per SM."""
+    res = (ctypes.c_int * 4)()
+    err = _load("bwd", defines).superdiff_flash_attn_bwd_info(
+        _BWD_KERNELS.index(kernel), D, _DTYPE_CODE[dtype], warps, bt, mt, res)
+    if err != 0:
+        raise RuntimeError(f"flash_attn_bwd_info failed: CUDA error {err}")
+    return dict(smem_bytes=res[0], registers=res[1], spill_bytes=res[2],
+                blocks_per_sm=res[3], warps_per_sm=res[3] * warps)
+
+
 def _flash_bwd_dq_cuda(q, k, v, g, lse, delta):
     """Launch the dQ kernel; inputs already checked by the caller."""
     B, S, H, D = q.shape
-    dq = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
-    with torch.cuda.device(q.device):
-        err = _load("bwd").superdiff_flash_attn_bwd_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, S, H, D,
-            _DTYPE_CODE[q.dtype], 1.0 / math.sqrt(D),
-            _bwd_strides(q, k, v, g, dq),
-            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attn_bwd_dq launch failed: CUDA error "
-                           f"{err} (shape {tuple(q.shape)}, {q.dtype})")
-    global bwd_dq_launches
-    bwd_dq_launches += 1
-    key = _shape_key(q)
-    bwd_dq_launches_by_shape[key] = bwd_dq_launches_by_shape.get(key, 0) + 1
-    return dq
+    warps, bt, mt, _, _ = _bwd_geometry("dq", B, S, H, D, q.element_size())
+    return _launch_bwd("dq", q, k, v, g, lse, delta, warps, bt, mt)
 
 
 def _flash_bwd_dkv_cuda(q, k, v, g, lse, delta):
     """Launch the dK/dV kernel; inputs already checked by the caller."""
     B, S, H, D = q.shape
-    dk, dv = (torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
-              for _ in range(2))
-    with torch.cuda.device(q.device):
-        err = _load("bwd").superdiff_flash_attn_bwd_dkv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            B, S, H, D, _DTYPE_CODE[q.dtype], 1.0 / math.sqrt(D),
-            _bwd_strides(q, k, v, g, dk, dv),
-            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attn_bwd_dkv launch failed: CUDA error "
-                           f"{err} (shape {tuple(q.shape)}, {q.dtype})")
-    global bwd_dkv_launches
-    bwd_dkv_launches += 1
-    key = _shape_key(q)
-    bwd_dkv_launches_by_shape[key] = bwd_dkv_launches_by_shape.get(key, 0) + 1
-    return dk, dv
+    warps, bt, mt, _, _ = _bwd_geometry("dkv", B, S, H, D, q.element_size())
+    return _launch_bwd("dkv", q, k, v, g, lse, delta, warps, bt, mt)
 
 
 def _bwd_delta(o, g):

@@ -10,8 +10,8 @@ For each shape (the wide256 path shapes by default: batch 16, H=4, S=1024 /
 256 / 64) and each geometry (warps per block, keys per K/V tile, 16-row
 m-tiles per warp) it launches the kernel through
 ``ops/flash_attention.py::_launch_fwd``: 1-8 warps of the tile the kernel
-is built with, and with ``--sweep`` also of the tiles in ``SWEEP_TILES``,
-from a variant build of the same source (``-DSUPERDIFF_FWD_SWEEP``). It
+is built with, and with ``--sweep`` also of the tiles that a variant build
+of the same source adds (``-DSUPERDIFF_FWD_SWEEP``; ``sweep_tiles``). It
 checks the kernel against ``_flash_forward_plain`` and against a rerun of
 itself (same bits), and times it (``tools/timing.py``): CUDA events over
 back-to-back calls and the kernel's own device time from
@@ -42,10 +42,18 @@ PATH_SHAPES = [(16, 1024, 4, 32), (16, 256, 4, 64), (16, 64, 4, 64)]
 TOL = {"bfloat16": dict(out=2e-2, lse=2e-3), "float32": dict(out=1e-4,
                                                               lse=1e-4)}
 SWEEP = "SUPERDIFF_FWD_SWEEP"
-# the (bk, mt) a --sweep build adds, by (dtype code, D)
-# (csrc/flash_attn_fwd.cu, SUPERDIFF_FWD_CASES under SUPERDIFF_FWD_SWEEP)
-SWEEP_TILES = {(0, 32): ((32, 1), (64, 1), (64, 2), (32, 4)),
-               (0, 64): ((32, 1), (32, 2), (64, 2)), (0, 128): ((32, 1),)}
+
+
+def sweep_tiles() -> dict:
+    """The (bk, mt) a --sweep build adds, by (dtype code, D): the entries of
+    ``SUPERDIFF_FWD_CASES`` under ``SUPERDIFF_FWD_SWEEP`` in
+    ``csrc/flash_attn_fwd.cu``."""
+    from superdiff_torch.ops import _build
+
+    tiles = {}
+    for code, D, bk, mt in _build.source_tiles("fwd", "SUPERDIFF_FWD_CASES"):
+        tiles.setdefault((code, D), []).append((bk, mt))
+    return tiles
 
 
 def sass_counts(so_path, nvcc):
@@ -81,7 +89,7 @@ def main(argv=None) -> int:
     p.add_argument("--shape", action="append", default=None,
                    help="B,S,H,D (repeatable); default: the path shapes")
     p.add_argument("--sweep", action="store_true",
-                   help="also the tiles of SWEEP_TILES (a variant build)")
+                   help="also the tiles of a variant build (sweep_tiles)")
     args = p.parse_args(argv)
 
     import torch
@@ -121,7 +129,7 @@ def main(argv=None) -> int:
             sdpa_device_ms=kernel_device_ms(sdpa, kernel=None))), flush=True)
         chosen = fa._fwd_geometry(B, S, H, D, q.element_size())[:3]
         tiles = (fa._FWD_TILE[(code, D)],
-                 *(SWEEP_TILES.get((code, D), ()) if args.sweep else ()))
+                 *(sweep_tiles().get((code, D), ()) if args.sweep else ()))
         for (bk, mt), warps in itertools.product(tiles, (1, 2, 4, 8)):
             if fa._fwd_smem_bytes(D, q.element_size(), warps, bk,
                                   mt) > fa.MAX_SMEM:

@@ -6,6 +6,8 @@ machine without jax (skip the JAX conftest there):
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import itertools
+
 import pytest
 import torch
 
@@ -138,7 +140,8 @@ def test_backward_kernels_match_plain_on_card(cuda, B, S, H, D, dtype):
     """dQ (B2) and dK/dV (B3) against ``_flash_backward_plain`` on the same
     inputs, with a non-contiguous dO. Tolerance relative to each gradient's
     largest entry: bf16 rounds P, dS and the output (2^-8 each) -> 2e-2;
-    f32 differs only in summation order and exp2 vs exp -> 1e-4."""
+    f32 differs only in summation order and exp2 vs exp -> 1e-4. A rerun
+    gives the same bits."""
     q, k, v = _fused_qkv(B, S, H, D, dtype, cuda)
     out, lse = fa._flash_forward(q, k, v)
     g = _fused_qkv(B, S, H, D, dtype, cuda, seed=1)[1]      # strided view
@@ -154,6 +157,60 @@ def test_backward_kernels_match_plain_on_card(cuda, B, S, H, D, dtype):
         assert a.shape == (B, S, H, D) and a.dtype == dtype
         err = (a.float() - b.float()).abs().max().item()
         assert err <= tol * b.float().abs().max().item(), (name, err)
+    again = fa._flash_backward(q, k, v, out, lse, g)
+    for name, a, b in zip(("dq", "dk", "dv"), got, again):
+        assert torch.equal(a, b), name          # no atomics: same bits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("code,D,kernel", sorted(fa._BWD_TILE))
+def test_backward_instantiations_fit_without_spills_on_card(cuda, code, D,
+                                                            kernel):
+    """Every built (kernel, dtype, D, bt, mt) at 1-8 warps: the kernel's
+    shared memory is what ``_bwd_smem_bytes`` says, no register spills, at
+    most 255 registers, at least one resident block per SM."""
+    dtype = torch.bfloat16 if code == 0 else torch.float32
+    elem = 2 if code == 0 else 4
+    for (bt, mt), warps in itertools.product(fa._BWD_TILE[(code, D, kernel)],
+                                             (1, 2, 4, 8)):
+        info = fa.bwd_kernel_info(kernel, D, dtype, warps, bt, mt)
+        key = (bt, mt, warps, info)
+        assert info["smem_bytes"] == fa._bwd_smem_bytes(
+            kernel, D, elem, warps, bt, mt), key
+        assert info["spill_bytes"] == 0 and info["registers"] <= 255, key
+        assert info["blocks_per_sm"] >= 1, key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_every_built_backward_geometry_matches_plain_on_card(cuda, dtype):
+    """Each kernel's built (bt, mt) tiles for each D at 1, 2, 4 and 8 warps,
+    at a ragged S (partial row and looped tiles), with a strided dO: agrees
+    with the plain version (tolerances as above, relative to each gradient's
+    largest entry) and reruns bit for bit."""
+    code = fa._DTYPE_CODE[dtype]
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    for D in fa.SUPPORTED_HEAD_DIMS:
+        q, k, v = _fused_qkv(2, 150, 2, D, dtype, cuda)
+        g = _fused_qkv(2, 150, 2, D, dtype, cuda, seed=1)[1]
+        out, lse = fa._flash_forward(q, k, v)
+        delta = fa._bwd_delta(out, g)
+        for kernel, plain in (("dq", fa._flash_bwd_dq_plain),
+                              ("dkv", fa._flash_bwd_dkv_plain)):
+            ref = plain(q, k, v, g, lse, delta)
+            ref = (ref,) if kernel == "dq" else ref
+            for (bt, mt), warps in itertools.product(
+                    fa._BWD_TILE[(code, D, kernel)], (1, 2, 4, 8)):
+                run = lambda: fa._launch_bwd(kernel, q, k, v, g, lse, delta,
+                                             warps, bt, mt)
+                got, again = run(), run()
+                got = (got,) if kernel == "dq" else got
+                again = (again,) if kernel == "dq" else again
+                for a, b, c in zip(got, ref, again):
+                    err = (a.float() - b.float()).abs().max().item()
+                    key = (D, kernel, warps, err)
+                    assert err <= tol * b.float().abs().max().item(), key
+                    assert torch.equal(a, c), key
 
 
 @pytest.mark.cuda

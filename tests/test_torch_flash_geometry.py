@@ -54,7 +54,7 @@ def test_small_batches_keep_half_the_sms_busy(B, S, H, D, warps):
     once the grid would give fewer than 64 blocks (about half the SMs)."""
     got, _, _, grid, _ = fa._fwd_geometry(B, S, H, D, 2)
     assert got == warps
-    assert grid[0] * grid[1] >= fa._FWD_MIN_BLOCKS or got == 1
+    assert grid[0] * grid[1] >= fa._MIN_BLOCKS or got == 1
 
 
 def test_batch_heads_go_on_the_wide_grid_axis():
@@ -72,6 +72,6 @@ def test_padded_rows_keep_ldmatrix_free_of_bank_conflicts(D, elem_size):
     """Rows are padded by 16 bytes: the row stride is an odd number of
     16-byte units, so 8 consecutive rows (one ldmatrix phase) start in 8
     distinct 16-byte bank groups of the 128-byte bank row."""
-    row = fa._fwd_row_bytes(D, elem_size)
+    row = fa._row_bytes(D, elem_size)
     assert row % 16 == 0 and (row // 16) % 2 == 1
     assert len({(r * row // 16) % 8 for r in range(8)}) == 8
