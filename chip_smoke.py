@@ -38,7 +38,17 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
 4. the sampling slice through the user entry points: the full-width wide256
    CondUNet with seeded random weights on every leaf, written as an exported
    run dir and loaded back through superdiff_torch.inference.load_run:
-   (a) superdiff_torch.cli.sample DDPM-1000 at 256², batch 16, label 0;
+   (a) superdiff_torch.cli.sample DDPM-1000 at 256², batch 16, label 0,
+       once with each sampler step run eagerly (the "before", through
+       cli.sample's Python API) and once through its CUDA graph (the main
+       path: one graph of one step, replayed per step): the same samples
+       bit for bit; s per batch, capture s and peak memory of both;
+       (a') DDPM at batch 16 and 4: ms per step eagerly over 100 steps and
+       graphed over 1000; eager and graphed plans run the last 100 steps
+       (the t=0 step, which keeps no noise, included) from one state and
+       must end equal bit for bit; and
+       a torch.profiler window over graph replays (device busy and idle
+       share per step, B1 kernels per replay);
    (b) one denoiser call at batch 2, bf16 kernel path on the card against the
        float32 plain path on the CPU; then the denoiser call's time at batch
        16 and a torch.profiler breakdown at batch 16 and 4; then every
@@ -46,9 +56,18 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
        and timed against B4 on the same inputs (a measurement for a later
        decision; the CondUNet does not call B4);
    (c) superdiff_torch.cli.sample SuperDiff OR and AND of two differently
-       seeded wide256 models, batch 4, T=1000;
-   every run checks finite outputs and exactly 8 forward launches per
-   denoiser call;
+       seeded wide256 models, batch 4, T=1000, graphed; OR also eagerly
+       (samples and logq bit for bit); AND's eager and graphed plans over
+       the last 100 steps from one state, as in (a') (x and logq bit for
+       bit), and ms per step of both;
+   every run checks finite outputs and 8 forward launches per denoiser call
+   through the wrapper (an eager run: every call; a graphed run: the
+   diffusion/graphed.py WARMUP_STEPS warm-up calls and the captured one).
+   A graph's replays launch B1 without the wrapper: a graphed run's
+   launches are the wrapper's launches outside the capture plus the
+   launches it recorded into the graph times the replays that
+   diffusion/graphed.py counted in the run (run_launches), and the
+   profiler counts the kernels of graph replays as a cross-check;
 5. the training slice, full-width wide256 at 256², bf16 compute:
    (a) one loss at batch 2: gradients through the kernels against gradients
        through their plain versions on the card (relative L2 over all leaves,
@@ -73,22 +92,36 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    two reference-layout checkpoints (this script's torch rebuild of the
    reference UNet, seeds 1 and 2, saved as ema_epoch1.pt) through
    superdiff_torch.cli.import_torch, then
-   (a) cli.sample DDPM-1000 at batch 16: finite, exactly 10 B4 launches per
-       denoiser call and no B1;
-   (b) one call at batch 2, B4 against the plain version on the card, and
-       the same call bit-equal with PyTorch's cuDNN TF32 off and on (the
-       RefUNet pins its convolutions to IEEE float32 itself); the call's
-       time at batch 16 and a profile (device busy, idle, B4 share);
+   (a) cli.sample DDPM-1000 at batch 16 through the CUDA graph: finite,
+       10 B4 launches per wrapped call, 10 of them captured, 1000 replays
+       and no B1;
+   (b) one call at batch 2, B4 against the plain version on the card (10 B4
+       launches, counted eagerly), and the same call bit-equal with
+       PyTorch's cuDNN TF32 off and on (the RefUNet pins its convolutions to
+       IEEE float32 itself); the call's time at batch 16 and a profile
+       (device busy, idle, B4 share); DDPM steps eagerly and graphed (100
+       each), with 10 B4 per graph replay from the profiler;
    (c) cli.sample SuperDiff OR of the two runs (TB x PNEUMONIA), batch 4,
-       T=1000: finite samples and logq;
+       T=1000, graphed: finite samples and logq;
    (d) one wide256 call: 0 B4 launches (the CondUNet is untouched);
    (e) cli.train --synthetic on model.preset=ref, batch 4: loss finite and
        falling, 10 B4 launches per step and per validation batch; gradients
        of one loss at batch 2 with B4 against the plain version;
    these legs run under PyTorch's default (cuDNN TF32 on), as a user's
    CLI run does; the RefUNet's convolutions ignore it;
-7. a JSON line per kernel shape, the card line, the kernels line, and last
-   the result line {"ok": true, "device": {...}}.
+7. serving: superdiff_torch.cli.serve's loading (load_service) of the two
+   wide256 run dirs at batch 16, the SamplerService and its HTTP app on an
+   ephemeral port: warm-up DDIM-50 (one capture); three concurrent unseeded
+   requests (num 4, 4, 8; labels 0, 1 and the null label) that must
+   coalesce into one batch; one seeded request twice (the same bytes, and
+   the eager sampler's bits); DPM++-10; SuperDiff OR with logq; then a
+   second service on the imported RefUNet run, one DDIM-50 request (B4
+   inside the graph); latencies, samples/s, captures and the graph pool;
+8. a JSON line per kernel shape, the card line, the kernels line, and last
+   the result line {"ok": true, "device": {...}}. A B1/B4 row's
+   `launches` is its main-path run's (4a, 6a) launches at that shape,
+   run_launches of three counts taken in that run and printed beside it:
+   `wrapper_launches`, `captured_per_replay` and `graph_replays`.
 
 float32 comparisons run with TF32 off (cudnn.allow_tf32=False, matmul
 precision "highest"); phase 6 turns cuDNN's TF32 back on, PyTorch's default.
@@ -713,6 +746,7 @@ def phase_training(fa, work, run1, tcfg, model_from_config, load_run,
     from superdiff_torch.cli import train as train_cli
     from superdiff_torch.data.synthetic import synthetic_xray_batch
     from superdiff_torch.diffusion import make_schedule
+    from superdiff_torch.diffusion.graphed import WARMUP_STEPS
     from superdiff_torch.diffusion.process import p_losses
 
     out = {}
@@ -858,17 +892,18 @@ def phase_training(fa, work, run1, tcfg, model_from_config, load_run,
         raise AssertionError(f"cli.export returned {rc}")
     out_f = os.path.join(work, "trained_samples")
     fa.reset_launches()
-    secs = run_cli(sample, [
+    secs, cap_s = run_cli(sample, [
         "--run-dir", exported, "--method", "ddim", "--num-steps", "20",
         "--batch-size", "4", "--label", "1", "--seed", "3", "--out", out_f,
         "--device", "cuda"])
-    check_launches(fa, 20, "DDIM-20 from the trained run")
+    check_launches(fa.launches, WARMUP_STEPS + 1, "graphed DDIM-20 from the "
+                   "trained run")
     xs = np.load(os.path.join(out_f, "samples.npy"))
     if xs.shape != (4, 256, 256, 1) or not np.isfinite(xs).all():
         raise AssertionError(f"samples from the trained run {xs.shape} not "
                              "finite/shaped")
     out["trained_sample"] = dict(method="ddim", steps=20, batch=4,
-                                 s_per_batch=secs,
+                                 s_per_batch=secs, capture_s=cap_s,
                                  abs_max=float(np.abs(xs).max()))
     log("phase 5f export + DDIM-20 from the trained run: "
         + json.dumps(out["trained_sample"]))
@@ -893,16 +928,83 @@ def write_run(path, seed, fp, tcfg, model_from_config):
     return n
 
 
-def run_cli(sample, argv):
+def run_cli(sample, argv, eager=False):
+    """cli.sample: seconds of batch 0 (the capture before it not counted),
+    and the capture's seconds (None for an eager run)."""
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc = sample.main(argv)
+        rc = sample.main(argv, eager=eager)
     text = buf.getvalue()
     log(text.rstrip())
     if rc != 0:
         raise AssertionError(f"cli.sample returned {rc}")
-    m = re.search(r"batch 0: ([0-9.]+)s", text)
-    return float(m.group(1))
+    secs = float(re.search(r"batch 0: ([0-9.]+)s", text).group(1))
+    cap = re.search(r"CUDA graph in ([0-9.]+)s", text)
+    if eager != (cap is None):
+        raise AssertionError(f"cli.sample eager={eager} but the run "
+                             f"{'did' if cap else 'did not'} capture a graph")
+    return secs, None if cap is None else float(cap.group(1))
+
+
+def sample_pair(sample, argv, what):
+    """The same cli.sample run eagerly ("before") and through its CUDA
+    graph, with the same seed: outputs equal bit for bit. Returns a row of
+    both runs' s per batch, capture s, peak GB and B1 launches, and each
+    run's counts: the wrapper's B1 launches by shape (all, and those made
+    under capture), the graphs captured and replayed, and the run's B1
+    launches by shape (:func:`run_launches`)."""
+    import numpy as np
+    import torch
+
+    from superdiff_torch.diffusion import graphed
+    from superdiff_torch.ops import flash_attention as fa
+    from superdiff_torch.ops import fused_norm as fn
+
+    out_dir = argv[argv.index("--out") + 1]
+    row, outs, counts = {}, {}, {}
+    for eager in (True, False):
+        tag = "eager" if eager else "graph"
+        run_argv = argv[:]
+        run_argv[run_argv.index("--out") + 1] = f"{out_dir}_{tag}"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        fn.reset_launches()
+        graphed.reset_counts()
+        secs, cap = run_cli(sample, run_argv, eager=eager)
+        counts[tag] = dict(b1=fa.launches, b4=fn.launches,
+                           b1_by_shape=dict(fa.launches_by_shape),
+                           b1_captured=dict(fa.captured_by_shape),
+                           b1_run=run_launches(fa.launches_by_shape,
+                                               fa.captured_by_shape),
+                           captures=graphed.captures,
+                           replays=graphed.replays)
+        row[tag] = dict(s_per_batch=secs, capture_s=cap,
+                        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                        b1_wrapper_launches=fa.launches,
+                        b1_run_launches=sum(counts[tag]["b1_run"].values()),
+                        graph_replays=graphed.replays)
+        d = f"{out_dir}_{tag}"
+        outs[tag] = [np.load(os.path.join(d, "samples.npy"))]
+        if os.path.exists(os.path.join(d, "logq.json")):
+            with open(os.path.join(d, "logq.json")) as f:
+                lq = json.load(f)
+            outs[tag].append(np.array([lq["logq_model1"],
+                                       lq["logq_model2"]]))
+            row[tag]["logq_gap_mean"] = lq["logq_gap_mean"]
+        if not all(np.isfinite(a).all() for a in outs[tag]):
+            raise AssertionError(f"{what} ({tag}): output not finite")
+    equal = all(np.array_equal(a, b) for a, b in zip(outs["eager"],
+                                                     outs["graph"]))
+    if not equal:
+        errs = [float(np.abs(a - b).max()) for a, b in zip(outs["eager"],
+                                                           outs["graph"])]
+        raise AssertionError(f"{what}: graphed run differs from the eager "
+                             f"run (max abs {errs})")
+    row["graph_equals_eager_bit_for_bit"] = equal
+    row["speedup"] = row["eager"]["s_per_batch"] / row["graph"]["s_per_batch"]
+    row["shape"] = list(outs["graph"][0].shape)
+    return row, outs["graph"], counts
 
 
 def profile_denoiser(model, batch, calls=5, kernels=FLASH_KERNELS[:1]):
@@ -955,6 +1057,327 @@ def profile_denoiser(model, batch, calls=5, kernels=FLASH_KERNELS[:1]):
         top_kernels_ms_per_call=[[k[:80], v / 1e3 / calls] for k, v in top])
 
 
+def graph_replay_profile(sampler, replays=20):
+    """torch.profiler over ``replays`` steps of a captured sampler (the
+    step's draw + one replay each): wall and device-busy ms per step, the
+    device's idle share, and kernels per replay (all; B1; B4's apply
+    pass)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    plan = sampler.plan
+    g = torch.Generator(device="cuda").manual_seed(0)
+    with torch.no_grad():
+        plan.start(torch.randn(plan.shape, generator=g, device="cuda"))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tic = time.perf_counter()
+        for _ in range(replays):
+            if plan.draws_noise:
+                plan.draw(g)
+            sampler.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - tic) * 1e3 / replays
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3 / replays
+    count = lambda name: sum(name in e.name for e in kern) / replays
+    return dict(replays=replays, wall_ms_per_step=wall_ms,
+                device_busy_ms_per_step=busy_ms if kern else "not measured",
+                device_idle_share=(1 - busy_ms / wall_ms) if kern
+                else "not measured",
+                kernels_per_replay=len(kern) / replays,
+                b1_per_replay=count("flash_fwd_kernel"),
+                b4_per_replay=count("gn_apply"))
+
+
+def ddpm_plan(model, batch, label=0):
+    """A factory of DDPM-1000 plans of ``model`` at ``batch``, 256²
+    (``label`` for a conditional model)."""
+    from superdiff_torch.diffusion.samplers import DDPMPlan
+    from superdiff_torch.diffusion.schedules import make_schedule
+    from superdiff_torch.inference import make_eps_fn_p
+
+    schedule = make_schedule(1000, device="cuda")
+    applyp = make_eps_fn_p(model, label if getattr(model, "num_classes", 0)
+                           else None)
+    return lambda: DDPMPlan(schedule, lambda x, t: applyp(model, x, t),
+                            (batch, 256, 256, 1))
+
+
+def superdiff_plan(models, batch, mode):
+    """A factory of SuperDiff plans (T=1000, 256², null label) of
+    ``models`` at ``batch``, as cli.sample builds them."""
+    from superdiff_torch.diffusion.schedules import make_schedule
+    from superdiff_torch.diffusion.superdiff import SuperDiffPlan
+    from superdiff_torch.inference import make_eps_fn_p
+
+    def eps(m):
+        f = make_eps_fn_p(m)
+        return lambda x, t: f(m, x, t)
+
+    schedule = make_schedule(1000, device="cuda")
+    fns = [eps(m) for m in models]
+    return lambda: SuperDiffPlan(schedule, fns, (batch, 256, 256, 1),
+                                 mode=mode)
+
+
+def graph_steps(make_plan, eager_steps=100, timed_steps=None):
+    """One sampler (``make_plan()`` builds a fresh plan) eagerly and
+    through its CUDA graph over its last ``eager_steps`` steps, from the
+    same state and seed: the state at the end (x, and logq for SuperDiff)
+    equal bit for bit; ms per step of the eager run and of the graph over
+    the first ``timed_steps`` (default all), the capture's seconds, and a
+    profile of graph replays."""
+    import torch
+
+    from superdiff_torch.diffusion.graphed import GraphedSampler
+
+    def run(sampler, steps, first=0):
+        plan = sampler.plan
+        g = torch.Generator(device="cuda").manual_seed(7)
+        with torch.no_grad():
+            plan.start(torch.randn(plan.shape, generator=g, device="cuda"))
+            plan.pos.fill_(first)
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        for _ in range(steps):
+            plan.draw(g)
+            sampler.step()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - tic) * 1e3 / steps
+
+    state = lambda plan: [t.clone() for t in (
+        plan.result() if isinstance(plan.result(), tuple)
+        else (plan.result(),))]
+    eager = GraphedSampler(make_plan(), capture=False)
+    first = eager.num_steps - eager_steps
+    eager_ms = run(eager, eager_steps, first)
+    want = state(eager.plan)
+    del eager
+    tic = time.perf_counter()
+    graphed = GraphedSampler(make_plan())
+    capture_s = time.perf_counter() - tic
+    run(graphed, eager_steps, first)
+    for got, ref in zip(state(graphed.plan), want):
+        if not torch.equal(got, ref):
+            err = (got - ref).abs().max().item()
+            raise AssertionError(f"graphed {type(graphed.plan).__name__} "
+                                 f"differs from eager over steps {first}-"
+                                 f"{first + eager_steps - 1} ({err:.3e})")
+    timed_steps = timed_steps or graphed.num_steps
+    graph_ms = run(graphed, timed_steps)
+    return dict(sampler=type(graphed.plan).__name__,
+                batch=graphed.plan.shape[0], eager_ms_per_step=eager_ms,
+                eager_steps_timed=eager_steps, graph_ms_per_step=graph_ms,
+                graph_steps_timed=timed_steps, capture_s=capture_s,
+                speedup=eager_ms / graph_ms,
+                bit_equal_over_steps=[first, first + eager_steps - 1],
+                profile=graph_replay_profile(graphed))
+
+
+def _post(base, body, timeout=600):
+    import urllib.request
+
+    tic = time.perf_counter()
+    with urllib.request.urlopen(urllib.request.Request(
+            f"{base}/sample", data=json.dumps(body).encode(),
+            method="POST"), timeout=timeout) as resp:
+        out = json.load(resp)
+    return out, time.perf_counter() - tic
+
+
+def _get(base, path):
+    import urllib.request
+
+    with urllib.request.urlopen(f"{base}{path}", timeout=60) as resp:
+        return json.load(resp)
+
+
+def _npy(resp):
+    import base64
+
+    import numpy as np
+
+    return np.load(io.BytesIO(base64.b64decode(resp["data"])))
+
+
+def _serve_http(service, info):
+    """Start the HTTP app on an ephemeral port in a thread; returns
+    ``(base url, stop)``."""
+    import threading
+
+    from superdiff_torch.serve import make_http_server
+
+    httpd = make_http_server(service, "127.0.0.1", 0, info=info)
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+
+    def stop():
+        httpd.shutdown()
+        httpd.server_close()
+        service.close()
+        th.join(timeout=30)
+
+    return f"http://127.0.0.1:{httpd.server_address[1]}", stop
+
+
+def phase_serving(fa, fn, run1, run2, ref_run):
+    """The serving slice (phase 7 of the module docstring)."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from superdiff_torch.cli import serve as serve_cli
+    from superdiff_torch.diffusion import graphed
+    from superdiff_torch.diffusion.samplers import ddim_sample
+    from superdiff_torch.inference import make_eps_fn_p
+
+    out = {}
+    args = serve_cli.build_parser().parse_args([
+        "--run-dir", run1, "--run-dir2", run2, "--batch-size", "16",
+        "--max-wait-ms", "500", "--device", "cuda"])
+    tic = time.time()
+    service, cfg, spec = serve_cli.load_service(args)
+    fa.reset_launches()
+    warm_s = service.warmup(spec)
+    out["load_s"] = time.time() - tic - warm_s
+    out["warmup"] = dict(spec=spec.__dict__, s=warm_s,
+                         b1_launches=fa.launches)
+    base, stop = _serve_http(service, {"run_dir": run1,
+                                       "preset": cfg.model.preset})
+    try:
+        health = _get(base, "/healthz")
+        if health != {"status": "ok", "backend": "cuda", "devices":
+                      torch.cuda.device_count()}:
+            raise AssertionError(f"/healthz: {health}")
+
+        # three concurrent unseeded requests, one spec: one coalesced batch
+        before = dict(service.stats)
+        bodies = [dict(num=4, label=0), dict(num=4, label=1),
+                  dict(num=8)]          # the last: the null label
+        results = [None] * 3
+
+        def client(i):
+            results[i] = _post(base, dict(bodies[i], method="ddim",
+                                          steps=50, format="npy"))
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(3)]
+        tic = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - tic
+        st = service.stats
+        if not (st["batches"] - before["batches"] == 1
+                and st["coalesced"] - before["coalesced"] == 2
+                and st["samples"] - before["samples"] == 16
+                and all(r is not None for r in results)):
+            raise AssertionError(f"three requests did not coalesce into one "
+                                 f"batch: {before} -> {st}")
+        for (resp, _), body in zip(results, bodies):
+            x = _npy(resp)
+            if x.shape != (body["num"], 256, 256, 1) or not np.isfinite(
+                    x).all():
+                raise AssertionError(f"coalesced response {x.shape}")
+        out["coalesced"] = dict(
+            requests=bodies, latency_s=[r[1] for r in results],
+            batch_wall_s=wall, samples_per_s=16 / wall)
+
+        # one seeded request, twice: the same bytes, and the eager sampler's
+        seeded = dict(num=3, label=1, method="ddim", steps=50, seed=1234,
+                      format="npy")
+        (a, lat_a), (b, lat_b) = _post(base, seeded), _post(base, seeded)
+        if a["data"] != b["data"]:
+            raise AssertionError("seeded request gave other bytes twice")
+        model, schedule = service._model, service._schedule
+        applyp = make_eps_fn_p(model, "per_sample")
+        y = torch.full((16,), model.null_label, dtype=torch.long,
+                       device="cuda")
+        y[:3] = 1
+        want = ddim_sample(schedule, lambda *z: applyp(model, *z),
+                           (16, 256, 256, 1),
+                           torch.Generator(device="cuda").manual_seed(1234),
+                           num_steps=50, y=y,
+                           null_label=model.null_label)[:3].cpu().numpy()
+        got = _npy(a)
+        if not np.array_equal(got, want):
+            raise AssertionError(f"seeded request differs from the eager "
+                                 f"sampler: max abs "
+                                 f"{np.abs(got - want).max():.3e}")
+        out["seeded"] = dict(latency_s=[lat_a, lat_b], equal_bytes=True,
+                             equal_to_eager_bit_for_bit=True)
+
+        # DPM++-10 twice: the first request pays its spec's capture
+        lats = []
+        for _ in range(2):
+            resp, lat = _post(base, dict(num=2, label=0, method="dpmpp",
+                                         steps=10))
+            lats.append(lat)
+            if resp["shape"] != [2, 256, 256, 1] or resp["content_type"] \
+                    != "image/png":
+                raise AssertionError(f"dpmpp response {resp['shape']}")
+        out["dpmpp10"] = dict(latency_s=lats)
+
+        resp, lat = _post(base, dict(num=4, method="superdiff", mode="or",
+                                     format="npy"))
+        logq = np.array(resp["logq"])
+        if (logq.shape != (2, 4) or not np.isfinite(logq).all()
+                or not np.isfinite(_npy(resp)).all()):
+            raise AssertionError(f"superdiff response logq {logq.shape}")
+        out["superdiff_or"] = dict(latency_s=lat,
+                                   logq_gap_mean=float(
+                                       (logq[0] - logq[1]).mean()))
+        metrics = _get(base, "/metrics")
+        out["metrics"] = metrics
+        if metrics["compiles"] != 3:
+            raise AssertionError(f"captures: {metrics['compiles']}, "
+                                 "expected 3 (ddim-50, dpmpp-10, superdiff)")
+    finally:
+        stop()
+    del service
+
+    # the imported RefUNet run: B4 inside a graph
+    args = serve_cli.build_parser().parse_args([
+        "--run-dir", ref_run, "--batch-size", "16", "--device", "cuda"])
+    service, cfg, spec = serve_cli.load_service(args)
+    fn.reset_launches()
+    fa.reset_launches()
+    warm_s = service.warmup(spec)
+    warm = fn.launches
+    per_replay = sum(fn.captured_by_shape.values())
+    base, stop = _serve_http(service, {"run_dir": ref_run})
+    try:
+        graphed.reset_counts()
+        resp, lat = _post(base, dict(num=4, method="ddim", steps=50,
+                                     format="npy"))
+        x = _npy(resp)
+        if (x.shape != (4, 256, 256, 1) or not np.isfinite(x).all()
+                or fn.launches != warm or per_replay != REF_CALLS_B4
+                or graphed.replays != 50 or fa.launches):
+            raise AssertionError(f"ref serving: {x.shape}, B4 launches "
+                                 f"{warm} at warm-up ({per_replay} "
+                                 f"captured), {fn.launches} after a "
+                                 f"request of {graphed.replays} replays, "
+                                 f"B1 {fa.launches}")
+        out["ref_ddim50"] = dict(warmup_s=warm_s, latency_s=lat,
+                                 b4_wrapper_launches_at_warmup=warm,
+                                 b4_captured_per_replay=per_replay,
+                                 graph_replays=graphed.replays,
+                                 b4_run_launches=per_replay
+                                 * graphed.replays,
+                                 samples_per_s=4 / lat,
+                                 graph_pool_gb=service.stats[
+                                     "graph_pool_gb"])
+    finally:
+        stop()
+    return out
+
+
 def phase_ref(fa, fn, work, sample, load_run, wide_model):
     """The reference-model slice (phase 6 of the module docstring): two
     reference-layout checkpoints through cli.import_torch, then cli.sample
@@ -965,6 +1388,7 @@ def phase_ref(fa, fn, work, sample, load_run, wide_model):
 
     from superdiff_torch.cli import import_torch
     from superdiff_torch.cli import train as train_cli
+    from superdiff_torch.diffusion import graphed
     from superdiff_torch.diffusion.process import p_losses
     from superdiff_torch.inference import apply_sampling_policy
     from superdiff_torch.models.layers import GroupNormSiLU
@@ -992,19 +1416,34 @@ def phase_ref(fa, fn, work, sample, load_run, wide_model):
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launches()
     fn.reset_launches()
-    secs = run_cli(sample, ["--run-dir", runs["TB"], "--method", "ddpm",
-                            "--batch-size", "16", "--seed", "0", "--out",
-                            out_a, "--device", "cuda"])
-    main_launches = dict(fn.launches_by_shape)
-    if fn.launches != REF_CALLS_B4 * 1000 or fa.launches:
-        raise AssertionError(f"ref DDPM-1000: {fn.launches} B4 and "
-                             f"{fa.launches} B1 launches, expected "
-                             f"{REF_CALLS_B4 * 1000} and 0")
+    graphed.reset_counts()
+    secs, cap_s = run_cli(sample, ["--run-dir", runs["TB"], "--method",
+                                   "ddpm", "--batch-size", "16", "--seed",
+                                   "0", "--out", out_a, "--device", "cuda"])
+    calls = graphed.WARMUP_STEPS + 1
+    main_launches = run_launches(fn.launches_by_shape, fn.captured_by_shape)
+    main_counts = dict(run=main_launches, wrapper=dict(fn.launches_by_shape),
+                       captured=dict(fn.captured_by_shape),
+                       replays=graphed.replays)
+    captured = sum(fn.captured_by_shape.values())
+    if (fn.launches != REF_CALLS_B4 * calls or fa.launches
+            or captured != REF_CALLS_B4 or graphed.captures != 1
+            or graphed.replays != 1000
+            or sum(main_launches.values())
+            != REF_CALLS_B4 * (1000 + graphed.WARMUP_STEPS)):
+        raise AssertionError(
+            f"graphed ref DDPM-1000: {fn.launches} B4 launches through the "
+            f"wrapper ({captured} captured) and {fa.launches} B1, "
+            f"{graphed.captures} captures, {graphed.replays} replays; "
+            f"expected {REF_CALLS_B4 * calls} ({REF_CALLS_B4}), 0, 1, 1000")
     x = np.load(os.path.join(out_a, "samples.npy"))
     if x.shape != (16, 256, 256, 1) or not np.isfinite(x).all():
         raise AssertionError(f"ref DDPM samples {x.shape} not finite/shaped")
-    out["ddpm"] = dict(s_per_batch=secs, batch=16, T=1000,
-                       b4_launches=fn.launches,
+    out["ddpm"] = dict(s_per_batch=secs, capture_s=cap_s, batch=16, T=1000,
+                       b4_wrapper_launches=fn.launches,
+                       b4_captured_per_replay=captured,
+                       graph_replays=graphed.replays,
+                       b4_run_launches=sum(main_launches.values()),
                        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                        abs_max=float(np.abs(x).max()))
     log("phase 6a ref DDPM-1000 batch 16: " + json.dumps(out["ddpm"]))
@@ -1052,25 +1491,33 @@ def phase_ref(fa, fn, work, sample, load_run, wide_model):
                        profile=profile_denoiser(model, 16,
                                                 kernels=GN_KERNELS))
     log("phase 6b RefUNet call: " + json.dumps(out["call"]))
+    out["steps"] = graph_steps(ddpm_plan(model, 16), timed_steps=100)
+    if round(out["steps"]["profile"]["b4_per_replay"]) != REF_CALLS_B4:
+        raise AssertionError(f"RefUNet graph replay runs "
+                             f"{out['steps']['profile']['b4_per_replay']} "
+                             f"B4 per step, expected {REF_CALLS_B4}")
+    log("phase 6b RefUNet DDPM steps, eager vs graphed: "
+        + json.dumps(out["steps"]))
     del model
 
     # (c) SuperDiff OR of the two imported runs, batch 4, T=1000
     out_c = os.path.join(work, "ref_or")
     fn.reset_launches()
-    secs = run_cli(sample, ["--run-dir", runs["TB"], "--run-dir2",
-                            runs["PNEUMONIA"], "--mode", "or",
-                            "--batch-size", "4", "--seed", "1", "--out",
-                            out_c, "--device", "cuda"])
+    secs, cap_s = run_cli(sample, ["--run-dir", runs["TB"], "--run-dir2",
+                                   runs["PNEUMONIA"], "--mode", "or",
+                                   "--batch-size", "4", "--seed", "1",
+                                   "--out", out_c, "--device", "cuda"])
     xs = np.load(os.path.join(out_c, "samples.npy"))
     with open(os.path.join(out_c, "logq.json")) as f:
         lq = json.load(f)
     logq = np.array([lq["logq_model1"], lq["logq_model2"]])
-    if (fn.launches != 2 * REF_CALLS_B4 * 1000
+    if (fn.launches != 2 * REF_CALLS_B4 * calls
             or xs.shape != (4, 256, 256, 1) or not np.isfinite(xs).all()
             or logq.shape != (2, 4) or not np.isfinite(logq).all()):
         raise AssertionError(f"ref SuperDiff OR: {fn.launches} B4 launches, "
                              f"samples {xs.shape}, logq {logq.shape}")
-    out["superdiff_or"] = dict(s_per_batch=secs, batch=4, T=1000,
+    out["superdiff_or"] = dict(s_per_batch=secs, capture_s=cap_s, batch=4,
+                               T=1000,
                                b4_launches=fn.launches,
                                logq_gap_mean=lq["logq_gap_mean"])
     log("phase 6c ref SuperDiff OR TB x PNEUMONIA: "
@@ -1139,7 +1586,7 @@ def phase_ref(fa, fn, work, sample, load_run, wide_model):
     out["grad_check"] = dict(rel_l2=rel, leaves=len(params))
     log("phase 6e RefUNet gradients, B4 vs plain: "
         + json.dumps(out["grad_check"]))
-    return out, main_launches
+    return out, main_counts
 
 
 @contextlib.contextmanager
@@ -1168,10 +1615,26 @@ def tf32(on):
         torch.backends.cudnn.allow_tf32 = prev
 
 
-def check_launches(fa, calls, what):
+def run_launches(by_shape, captured_by_shape):
+    """A run's kernel launches by shape, from counts taken in the run: the
+    wrapper's launches made outside a capture, plus each launch it recorded
+    into the run's one CUDA graph times that graph's replays (a replay
+    launches the graph's kernels without the wrapper)."""
+    from superdiff_torch.diffusion import graphed
+
+    if graphed.captures > 1:
+        raise AssertionError(f"{graphed.captures} graphs captured in one run")
+    return {k: n - captured_by_shape.get(k, 0)
+            + captured_by_shape.get(k, 0) * graphed.replays
+            for k, n in by_shape.items()}
+
+
+def check_launches(launches, calls, what):
+    """8 B1 launches per wide256 denoiser call through the wrapper (a
+    graphed run: its warm-up and captured calls, not its replays)."""
     expect = 8 * calls
-    if fa.launches != expect:
-        raise AssertionError(f"{what}: {fa.launches} flash launches for "
+    if launches != expect:
+        raise AssertionError(f"{what}: {launches} flash launches for "
                              f"{calls} denoiser calls, expected {expect}")
 
 
@@ -1206,6 +1669,8 @@ def main() -> int:
     from superdiff_torch.ops import flash_attention as fa
     from superdiff_torch.ops import fused_norm as fn
 
+    from superdiff_torch.diffusion.graphed import WARMUP_STEPS
+
     tic = time.time()
     sos = _build.build_all(verbose=True)
     build_s = time.time() - tic
@@ -1229,23 +1694,30 @@ def main() -> int:
     log(f"phase 4 setup: two wide256 run dirs ({n_arrays} arrays each) in "
         f"{time.time() - tic:.3f} s")
 
-    # (a) DDPM-1000, 256², batch 16, label 0 — the main path
-    out_a = os.path.join(work, "ddpm")
-    torch.cuda.reset_peak_memory_stats()
-    fa.reset_launches()
-    ddpm_s = run_cli(sample, [
+    # (a) DDPM-1000, 256², batch 16, label 0 — the main path: cli.sample
+    # eagerly ("before"; 8 B1 launches per denoiser call, counted), then
+    # through its CUDA graph (the main path; the wrapper counts the
+    # warm-up and captured steps' launches, the replays run in the graph)
+    ddpm, _, ddpm_counts = sample_pair(sample, [
         "--run-dir", run1, "--method", "ddpm", "--batch-size", "16",
-        "--label", "0", "--guidance", "1.0", "--seed", "0", "--out", out_a,
-        "--device", "cuda"])
-    main_launches = dict(fa.launches_by_shape)
-    ddpm_peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    check_launches(fa, 1000, "DDPM-1000")
-    x = np.load(os.path.join(out_a, "samples.npy"))
-    if x.shape != (16, 256, 256, 1) or not np.isfinite(x).all():
-        raise AssertionError(f"DDPM samples {x.shape} not finite/shaped")
-    log(f"phase 4a DDPM-1000 batch 16: {ddpm_s:.3f} s per batch (= ms per "
-        f"sampler step), peak {ddpm_peak_gb:.3f} GB, launches "
-        f"{main_launches}")
+        "--label", "0", "--guidance", "1.0", "--seed", "0", "--out",
+        os.path.join(work, "ddpm"), "--device", "cuda"], "DDPM-1000")
+    main_counts = ddpm_counts["graph"]
+    main_launches = main_counts["b1_run"]
+    eager_launches = ddpm_counts["eager"]["b1_run"]
+    check_launches(ddpm_counts["eager"]["b1"], 1000, "eager DDPM-1000")
+    check_launches(main_counts["b1"], WARMUP_STEPS + 1, "graphed DDPM")
+    check_launches(sum(main_counts["b1_captured"].values()), 1,
+                   "the captured DDPM step")
+    if main_counts["captures"] != 1 or main_counts["replays"] != 1000:
+        raise AssertionError(f"graphed DDPM-1000: {main_counts['captures']} "
+                             f"captures, {main_counts['replays']} replays")
+    check_launches(sum(main_launches.values()), 1000 + WARMUP_STEPS,
+                   "graphed DDPM-1000 (replays and warm-up)")
+    if ddpm["shape"] != [16, 256, 256, 1]:
+        raise AssertionError(f"DDPM samples {ddpm['shape']}")
+    log("phase 4a DDPM-1000 batch 16, eager then graphed (s per batch = ms "
+        "per sampler step): " + json.dumps(ddpm))
 
     # (b) one denoiser call at batch 2: bf16 kernel path vs f32 plain path
     _, model, _ = load_run(run1, device="cuda")
@@ -1259,7 +1731,7 @@ def main() -> int:
     with torch.no_grad():
         got = model(xb.cuda(), tb.cuda(), yb.cuda()).float().cpu()
         torch.cuda.synchronize()
-        check_launches(fa, 1, "denoiser call")
+        check_launches(fa.launches, 1, "denoiser call")
         expect = ref(xb, tb, yb)
     rel = (torch.linalg.norm(got - expect) / torch.linalg.norm(expect)).item()
     if not (torch.isfinite(got).all() and rel < SLICE_REL_TOL):
@@ -1281,28 +1753,59 @@ def main() -> int:
     log("phase 4b wide256 GroupNorm->SiLU chains vs B4 (measurement only): "
         + json.dumps({k: v for k, v in chains.items() if k != "rows"}))
 
-    # (c) SuperDiff OR and AND, batch 4, T=1000, two models
+    # (a') DDPM at batch 4: eager over 100 steps, graphed over all 1000;
+    # and the graph replays' profile at batch 16 and 4
+    graph_rows = [graph_steps(ddpm_plan(model, 16), timed_steps=200),
+                  graph_steps(ddpm_plan(model, 4))]
+    for row in graph_rows:
+        prof = row["profile"]
+        # the profiler may lose an event in a window: round per replay
+        if round(prof["b1_per_replay"]) != 8:
+            raise AssertionError(f"graph replay runs {prof['b1_per_replay']}"
+                                 " B1 kernels per step, expected 8")
+        log("phase 4a' DDPM steps, eager vs graphed: " + json.dumps(row))
+
+    # (c) SuperDiff OR and AND, batch 4, T=1000, two models, graphed. OR
+    # also eagerly, the "before": samples and logq bit for bit. AND: the
+    # eager and graphed plans over the last 100 steps from one state, x and
+    # logq bit for bit (a whole eager AND batch would add ~60-95 s of
+    # host-bound time)
+    _, model2, _ = load_run(run2, device="cuda")
+    apply_sampling_policy(model2)
     superdiff = {}
     for mode in ("or", "and"):
         out_c = os.path.join(work, mode)
-        fa.reset_launches()
-        secs = run_cli(sample, [
-            "--run-dir", run1, "--run-dir2", run2, "--mode", mode,
-            "--batch-size", "4", "--seed", "1", "--out", out_c,
-            "--device", "cuda"])
-        check_launches(fa, 2000, f"SuperDiff {mode}")
-        xs = np.load(os.path.join(out_c, "samples.npy"))
-        with open(os.path.join(out_c, "logq.json")) as f:
-            lq = json.load(f)
-        logq = np.array([lq["logq_model1"], lq["logq_model2"]])
-        if (xs.shape != (4, 256, 256, 1) or not np.isfinite(xs).all()
-                or logq.shape != (2, 4) or not np.isfinite(logq).all()):
+        argv = ["--run-dir", run1, "--run-dir2", run2, "--mode", mode,
+                "--batch-size", "4", "--seed", "1", "--out", out_c,
+                "--device", "cuda"]
+        if mode == "or":
+            row, (xs, logq), counts = sample_pair(sample, argv,
+                                                  "SuperDiff or")
+            check_launches(counts["eager"]["b1"], 2000, "eager SuperDiff or")
+            graph_b1 = counts["graph"]["b1"]
+        else:
+            fa.reset_launches()
+            secs, cap_s = run_cli(sample, argv)
+            graph_b1 = fa.launches
+            xs = np.load(os.path.join(out_c, "samples.npy"))
+            with open(os.path.join(out_c, "logq.json")) as f:
+                lq = json.load(f)
+            logq = np.array([lq["logq_model1"], lq["logq_model2"]])
+            row = dict(graph=dict(s_per_batch=secs, capture_s=cap_s,
+                                  logq_gap_mean=lq["logq_gap_mean"]),
+                       steps=graph_steps(superdiff_plan((model, model2), 4,
+                                                        mode),
+                                         timed_steps=100))
+        check_launches(graph_b1, 2 * (WARMUP_STEPS + 1),
+                       f"graphed SuperDiff {mode}")
+        if (xs.shape != (4, 256, 256, 1) or logq.shape != (2, 4)
+                or not (np.isfinite(xs).all() and np.isfinite(logq).all())):
             raise AssertionError(f"SuperDiff {mode}: samples {xs.shape}, "
-                                 f"logq {logq.shape} not finite/shaped")
-        superdiff[mode] = dict(s_per_batch=secs, T=1000, batch=4,
-                               logq_gap_mean=lq["logq_gap_mean"])
-        log(f"phase 4c SuperDiff {mode.upper()} T=1000 batch 4: {secs:.3f} s,"
-            f" logq gap mean {lq['logq_gap_mean']:.4f}")
+                                 f"logq {logq.shape}, finite or not")
+        superdiff[mode] = row
+        log(f"phase 4c SuperDiff {mode.upper()} T=1000 batch 4 (graphed; "
+            "eager against it): " + json.dumps(row))
+    del model2
 
     training_out, train_launches = phase_training(
         fa, work, run1, tcfg, model_from_config, load_run, sample)
@@ -1311,15 +1814,22 @@ def main() -> int:
     # as a user's cli.sample / cli.train would; the RefUNet's convolutions
     # run IEEE float32 whatever it says, which phase 6b checks
     with tf32(True):
-        ref_out, ref_launches = phase_ref(fa, fn, work, sample, load_run,
+        ref_out, ref_counts = phase_ref(fa, fn, work, sample, load_run,
                                           model)
     del model
 
+    # (7) serving: cli.serve's loading, the service and the HTTP app
+    with tf32(True):
+        serving = phase_serving(fa, fn, run1, run2,
+                                os.path.join(work, "imported_TB"))
+    log(f"phase 7 serving ({card_line}): " + json.dumps(serving))
+
     summary = dict(card=card_line, build_s=build_s, training=training_out,
-                   ddpm1000_batch16_s=ddpm_s, denoiser_ms_batch16=step_ms,
+                   ddpm1000_batch16=ddpm, graph_steps=graph_rows,
+                   denoiser_ms_batch16=step_ms,
                    slice_rel_l2_bf16_vs_f32=rel, superdiff=superdiff,
-                   profiles=profiles, ddpm_peak_mem_gb=ddpm_peak_gb,
-                   wide256_norm_chains=chains, ref_slice=ref_out,
+                   profiles=profiles, wide256_norm_chains=chains,
+                   ref_slice=ref_out, serving=serving,
                    total_s=time.time() - t_start)
     log("slice " + json.dumps(summary))
 
@@ -1330,14 +1840,22 @@ def main() -> int:
             name=f"flash_attn_fwd[bf16 B{B} S{S} H{H} D{D}]", route="cuda",
             source=KERNEL_SRC, replaces=TPU_KERNEL,
             launches=main_launches.get((S, D, "bfloat16"), 0),
+            wrapper_launches=main_counts["b1_by_shape"].get(
+                (S, D, "bfloat16"), 0),
+            captured_per_replay=main_counts["b1_captured"].get(
+                (S, D, "bfloat16"), 0),
+            graph_replays=main_counts["replays"],
+            eager_launches=eager_launches.get((S, D, "bfloat16"), 0),
             train_launches=train_launches["fwd"].get((S, D, "bfloat16"), 0),
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             kernel_device_ms=row["kernel_device_ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             library_device_ms=row["library_device_ms"]))
-        if not (kernels[-1]["launches"] and kernels[-1]["train_launches"]):
-            raise AssertionError(f"path shape {(B, S, H, D)} never launched")
+        if not (kernels[-1]["captured_per_replay"]
+                and kernels[-1]["train_launches"]):
+            raise AssertionError(f"path shape {(B, S, H, D)} never launched "
+                                 "in the graph or in training")
     for kern, name, replaces in (("dq", "flash_attn_bwd_dq", TPU_BWD_DQ),
                                  ("dkv", "flash_attn_bwd_dkv", TPU_BWD_DKV)):
         for (B, S, H, D) in PATH_SHAPES:
@@ -1359,13 +1877,18 @@ def main() -> int:
         kernels.append(dict(
             name=f"group_norm_silu[f32 B{B} {H}x{W} C{C} G{G}]",
             route="cuda", source=GN_SRC, replaces=TPU_GN,
-            launches=ref_launches.get((H, W, C, G, film, "float32"), 0),
+            launches=ref_counts["run"].get((H, W, C, G, film, "float32"), 0),
+            wrapper_launches=ref_counts["wrapper"].get(
+                (H, W, C, G, film, "float32"), 0),
+            captured_per_replay=ref_counts["captured"].get(
+                (H, W, C, G, film, "float32"), 0),
+            graph_replays=ref_counts["replays"],
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"]))
-        if kernels[-1]["launches"] == 0:
+        if kernels[-1]["captured_per_replay"] == 0:
             raise AssertionError(f"B4 never launched at path shape "
-                                 f"{(B, H, W, C, G)} in the ref DDPM run")
+                                 f"{(B, H, W, C, G)} in the ref DDPM graph")
     print(card_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -5,9 +5,14 @@ Modes:
   DPM-Solver++(2M) (``--method dpmpp``);
 - SuperDiff superposition of two runs (``--run-dir2``, ``--mode``).
 
-Each batch writes into ``--out``: ``samples.npy`` (all batches, NHWC) and,
-for SuperDiff, ``logq.json``. Run dirs are exported inference artifacts
-(``config.yaml`` + ``ema_params.npz``).
+Each batch is one :class:`~superdiff_torch.diffusion.graphed.GraphedSampler`
+run: on the card, one CUDA graph of one sampler step, captured once and
+replayed per step (``main(argv, eager=True)`` runs the same step eagerly,
+for comparison); on the CPU, the step eagerly. Each batch writes a PNG grid
+``batch{b}.png`` into ``--out``; at the end come ``samples.npy`` (all
+batches, NHWC) and, for SuperDiff, ``logq.json``. Run dirs are exported
+inference artifacts (``config.yaml`` + ``ema_params.npz``) or the port's
+training run dirs (``--step`` / ``--best`` pick the checkpoint).
 
 Usage:
     python -m superdiff_torch.cli.sample --run-dir RUN --method ddim \
@@ -28,11 +33,17 @@ import numpy as np
 
 
 def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="Sample from exported runs")
+    p = argparse.ArgumentParser(description="Sample from trained runs")
     p.add_argument("--run-dir", required=True,
-                   help="exported run dir (config.yaml + ema_params.npz)")
+                   help="exported run dir (config.yaml + ema_params.npz) or "
+                        "a superdiff_torch training run dir")
     p.add_argument("--run-dir2", default=None,
                    help="second run dir -> SuperDiff superposition")
+    p.add_argument("--step", type=int, default=None,
+                   help="checkpoint step (default: latest)")
+    p.add_argument("--best", action="store_true",
+                   help="load the best-validation checkpoint "
+                        "(<checkpoint_dir>_best) instead of the latest")
     p.add_argument("--method", choices=["ddpm", "ddim", "dpmpp"],
                    default=None,
                    help="default: the run config's sampling.method")
@@ -58,21 +69,27 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def main(argv=None) -> int:
+def main(argv=None, eager: bool = False) -> int:
+    """Run the CLI. ``eager=True`` runs each sampler step eagerly on the
+    card too (no CUDA graph): the same samples, for timing against the
+    graph."""
     args = build_parser().parse_args(argv)
 
     import torch
 
-    from superdiff_torch.diffusion import (ddim_sample, ddpm_sample,
-                                           dpmpp_sample)
-    from superdiff_torch.diffusion.superdiff import superdiff_sample
+    from superdiff_torch.diffusion.graphed import GraphedSampler
+    from superdiff_torch.diffusion.samplers import (DDIMPlan, DDPMPlan,
+                                                    DPMppPlan)
+    from superdiff_torch.diffusion.superdiff import SuperDiffPlan
     from superdiff_torch.inference import (apply_sampling_policy,
                                            check_superpose_compat, load_run,
                                            make_eps_fn_p,
                                            resolve_sampler_spec)
+    from superdiff_torch.utils.visualization import save_image_grid
 
     device = torch.device(args.device)
-    cfg, model, schedule = load_run(args.run_dir, device=device)
+    cfg, model, schedule = load_run(args.run_dir, device=device,
+                                    step=args.step, best=args.best)
     apply_sampling_policy(model)
     R = cfg.training.resolution
     B = args.batch_size
@@ -88,11 +105,9 @@ def main(argv=None) -> int:
         apply2 = make_eps_fn_p(model2, args.label, schedule=schedule)
         fns = [lambda x, t: apply1(model, x, t),
                lambda x, t: apply2(model2, x, t)]
-
-        def sample_fn(g):
-            return superdiff_sample(
-                schedule, fns, shape, g, mode=args.mode,
-                kappa=list(args.kappa), temperature=args.temperature)
+        plan = SuperDiffPlan(schedule, fns, shape, mode=args.mode,
+                             kappa=list(args.kappa),
+                             temperature=args.temperature)
     else:
         method, num_steps, spacing, clip_x0 = resolve_sampler_spec(
             cfg, args.method, args.num_steps, args.spacing)
@@ -107,31 +122,31 @@ def main(argv=None) -> int:
         fn = lambda *a: applyp(model, *a)
 
         if method == "ddim":
-            steps = num_steps or 50
-
-            def sample_fn(g):
-                return ddim_sample(schedule, fn, shape, g, num_steps=steps,
-                                   eta=args.eta, t_spacing=spacing,
-                                   clip_x0=clip_x0, **extra)
+            plan = DDIMPlan(schedule, fn, shape, num_steps=num_steps or 50,
+                            eta=args.eta, t_spacing=spacing,
+                            clip_x0=clip_x0, **extra)
         elif method == "dpmpp":
             if args.eta:
                 raise SystemExit(
                     "--eta only applies to --method ddim; DPM-Solver++ is "
                     "a deterministic ODE solver (no stochasticity knob)")
-            steps = num_steps or 20
-
-            def sample_fn(g):
-                return dpmpp_sample(schedule, fn, shape, g, num_steps=steps,
-                                    clip_x0=clip_x0, **extra)
+            plan = DPMppPlan(schedule, fn, shape, num_steps=num_steps or 20,
+                             clip_x0=clip_x0, **extra)
         else:
-            def sample_fn(g):
-                return ddpm_sample(schedule, fn, shape, g, **extra)
+            plan = DDPMPlan(schedule, fn, shape, **extra)
+
+    tic = time.time()
+    sampler = GraphedSampler(plan, capture=device.type == "cuda"
+                             and not eager)
+    if sampler.graph is not None:
+        print(f"captured one {type(plan).__name__} step as a CUDA graph in "
+              f"{time.time() - tic:.3f}s")
 
     all_batches, all_logq = [], []
     for b in range(args.num_batches):
         g = torch.Generator(device=device).manual_seed(args.seed + b)
         tic = time.time()
-        out = sample_fn(g)
+        out = sampler(g)
         if superpose:
             x, logq = out
             lq = logq.cpu().numpy()
@@ -143,7 +158,9 @@ def main(argv=None) -> int:
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             print(f"batch {b}: {time.time() - tic:.3f}s")
-        all_batches.append(x.float().cpu().numpy())
+        imgs = x.float().cpu().numpy()
+        all_batches.append(imgs)
+        save_image_grid(imgs, os.path.join(args.out, f"batch{b}.png"))
 
     stack = np.concatenate(all_batches)
     np.save(os.path.join(args.out, "samples.npy"), stack)

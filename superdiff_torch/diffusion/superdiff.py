@@ -11,8 +11,11 @@ with ``s_i = -eps_i / sqrt(1 - alpha_bar_t)``. Mixing modes each step:
 models, kappa solved in closed form so the cumulative densities meet,
 clipped to [-2, 3]) and ``"fixed"`` (constant weights).
 
-The loop runs on the schedule's device with no host sync per step; noise
-comes from a ``torch.Generator`` or is injected (``x_init=``, ``noise=``).
+The sampler is a ``SamplerPlan`` (:class:`SuperDiffPlan`): one step function
+over device buffers (``x``, ``logq``, the step's draw) that reads the step's
+timestep at a device position counter, with no host sync, so the eager loop
+runs it and ``diffusion/graphed.py`` captures it. Noise comes from a
+``torch.Generator`` or is injected (``x_init=``, ``noise=``).
 """
 
 from __future__ import annotations
@@ -22,8 +25,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from superdiff_torch.diffusion.samplers import (
-    _init_noise, _step_noise, make_frame_recorder)
+from superdiff_torch.diffusion.samplers import SamplerPlan, _at, _run_plan
 from superdiff_torch.diffusion.schedules import DiffusionSchedule
 
 MIX_MODES = ("or", "and", "fixed")
@@ -36,12 +38,14 @@ def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def ito_logdensity_step(schedule: DiffusionSchedule,
-                        t_scalar: int,
+                        t_scalar,
                         x: torch.Tensor,
                         scores: torch.Tensor,
                         dx: torch.Tensor) -> torch.Tensor:
     """One Itô update of ``log q_i`` for every model. ``scores``: (M, B, H,
-    W, C); ``dx``: the realized update ``x_next - x``; returns (M, B)."""
+    W, C); ``dx``: the realized update ``x_next - x``; returns (M, B).
+    ``t_scalar``: an int, or a ``(1,)`` long tensor on the schedule's
+    device."""
     beta = schedule.betas[t_scalar]
     d = float(math.prod(x.shape[1:]))
     return (_dot(scores, dx[None]) - 0.5 * beta * (
@@ -55,7 +59,7 @@ def _mix_kappa_or(logq: torch.Tensor, temperature: float,
 
 
 def _mix_kappa_and(schedule: DiffusionSchedule,
-                   t_scalar: int,
+                   t_scalar,
                    x: torch.Tensor,
                    scores: torch.Tensor,
                    dx_base: torch.Tensor,
@@ -77,6 +81,79 @@ def _mix_kappa_and(schedule: DiffusionSchedule,
     safe_slope = torch.where(slope.abs() < 1e-8, tiny, slope)
     kappa1 = torch.clamp((target - const) / safe_slope, -2.0, 3.0)
     return torch.stack([kappa1, 1.0 - kappa1], dim=0)           # (2, B)
+
+
+class SuperDiffPlan(SamplerPlan):
+    """Superposed DDPM ancestral sampling across M models, as a plan:
+    state ``x`` and ``logq`` (M, B), one draw per step. ``model_fns`` are
+    per-model ``(x, t) -> eps_i``, or ``(x, t, y) -> eps_i`` when the plan
+    holds labels ``y``."""
+
+    def __init__(self, schedule, model_fns, shape, mode: str = "or",
+                 kappa: Optional[Sequence[float]] = None,
+                 temperature: float = 1.0,
+                 bias: Optional[Sequence[float]] = None,
+                 y: Optional[torch.Tensor] = None, dtype=torch.float32):
+        if mode not in MIX_MODES:
+            raise ValueError(f"unknown mode {mode!r} (have {MIX_MODES})")
+        M = len(model_fns)
+        if M < 2:
+            raise ValueError("superposition needs >= 2 models")
+        if mode == "and" and M != 2:
+            raise ValueError("AND mode supports exactly two models")
+        dev = schedule.device
+        if mode == "fixed":
+            if kappa is None or len(kappa) != M:
+                raise ValueError("fixed mode requires kappa of length M")
+            self.kappa_fixed = torch.as_tensor(kappa, dtype=torch.float32,
+                                               device=dev)[:, None]
+        T = schedule.num_timesteps
+        super().__init__(schedule, None, shape, torch.arange(T - 1, -1, -1),
+                         y=y, dtype=dtype)
+        self.model_fns, self.mode, self.temperature = model_fns, mode, temperature
+        self.bias = (torch.as_tensor(bias, dtype=torch.float32, device=dev)
+                     if bias is not None
+                     else torch.zeros((M,), dtype=torch.float32, device=dev))
+        self.d = float(math.prod(shape[1:]))
+        self.logq = torch.zeros((M, shape[0]), dtype=torch.float32,
+                                device=dev)
+
+    def _reset(self):
+        x = self.x
+        logq0 = -0.5 * _dot(x, x) - 0.5 * self.d * math.log(2.0 * math.pi)
+        self.logq.copy_(logq0[None, :].expand_as(self.logq))
+
+    def _update(self, t):
+        s, x, dtype = self.schedule, self.x, self.dtype
+        M, B = self.logq.shape
+        tb = t.expand(B)
+        ys = () if self.y is None else (self.y,)
+        eps = torch.stack([fn(x, tb, *ys) for fn in self.model_fns]).to(dtype)
+        scores = -eps / _at(s.sqrt_one_minus_alpha_bars, t)
+        beta = _at(s.betas, t)
+        sqrt_recip_alpha = _at(s.sqrt_recip_alphas, t)
+        keep = (t > 0).to(beta.dtype)
+        noise_term = torch.sqrt(beta) * keep * self.z
+        dx_base_nos = sqrt_recip_alpha * x - x + noise_term
+
+        if self.mode == "and":
+            dx_base = dx_base_nos + sqrt_recip_alpha * beta * scores[1]
+            dx_coef = sqrt_recip_alpha * beta * (scores[0] - scores[1])
+            kap = _mix_kappa_and(s, t, x, scores, dx_base, dx_coef,
+                                 self.bias, self.logq)
+        elif self.mode == "or":
+            kap = _mix_kappa_or(self.logq, self.temperature, self.bias)
+        else:
+            kap = self.kappa_fixed.expand(M, B)
+
+        kap_b = kap.to(dtype).reshape((M, B) + (1,) * (x.ndim - 1))
+        s_mix = (kap_b * scores).sum(dim=0)
+        dx = dx_base_nos + sqrt_recip_alpha * beta * s_mix
+        self.logq.add_(ito_logdensity_step(s, t, x, scores, dx))
+        self.x.add_(dx)
+
+    def result(self):
+        return self.x, self.logq
 
 
 @torch.no_grad()
@@ -101,64 +178,9 @@ def superdiff_sample(
     the shared Gaussian-prior constant), plus ``(num_frames, B, ...)``
     frames when ``num_frames > 0``.
     """
-    if mode not in MIX_MODES:
-        raise ValueError(f"unknown mode {mode!r} (have {MIX_MODES})")
-    M = len(model_fns)
-
-    if M < 2:
-        raise ValueError("superposition needs >= 2 models")
-    if mode == "and" and M != 2:
-        raise ValueError("AND mode supports exactly two models")
-    dev = schedule.device
-    if mode == "fixed":
-        if kappa is None or len(kappa) != M:
-            raise ValueError("fixed mode requires kappa of length M")
-        kappa_fixed = torch.as_tensor(kappa, dtype=torch.float32,
-                                      device=dev)[:, None]
-    bias_arr = (torch.as_tensor(bias, dtype=torch.float32, device=dev)
-                if bias is not None
-                else torch.zeros((M,), dtype=torch.float32, device=dev))
-
-    T = schedule.num_timesteps
-    B = shape[0]
-    d = float(math.prod(shape[1:]))
-    x = _init_noise(shape, generator, x_init, dev, dtype)
-    logq0 = -0.5 * _dot(x, x) - 0.5 * d * math.log(2.0 * math.pi)
-    logq = logq0[None, :].repeat(M, 1)                          # (M, B)
-
-    recording = num_frames > 0
-    if recording:
-        init_buf, record = make_frame_recorder(T, num_frames)
-        frames = init_buf(shape, dtype, dev)
-
-    for pos, t_i in enumerate(range(T - 1, -1, -1)):
-        t = torch.full((B,), t_i, dtype=torch.long, device=dev)
-        eps = torch.stack([fn(x, t) for fn in model_fns]).to(dtype)
-        scores = -eps / schedule.sqrt_one_minus_alpha_bars[t_i]
-        beta = schedule.betas[t_i]
-        sqrt_recip_alpha = schedule.sqrt_recip_alphas[t_i]
-        z = _step_noise(noise, pos, shape, generator, dev, dtype)
-        keep = 1.0 if t_i > 0 else 0.0
-        noise_term = torch.sqrt(beta) * keep * z
-        dx_base_nos = sqrt_recip_alpha * x - x + noise_term
-
-        if mode == "and":
-            dx_base = dx_base_nos + sqrt_recip_alpha * beta * scores[1]
-            dx_coef = sqrt_recip_alpha * beta * (scores[0] - scores[1])
-            kap = _mix_kappa_and(schedule, t_i, x, scores, dx_base, dx_coef,
-                                 bias_arr, logq)
-        elif mode == "or":
-            kap = _mix_kappa_or(logq, temperature, bias_arr)
-        else:
-            kap = kappa_fixed.expand(M, B)
-
-        kap_b = kap.to(dtype).reshape((M, B) + (1,) * (x.ndim - 1))
-        s_mix = (kap_b * scores).sum(dim=0)
-        dx = dx_base_nos + sqrt_recip_alpha * beta * s_mix
-        logq = logq + ito_logdensity_step(schedule, t_i, x, scores, dx)
-        x = x + dx
-        if recording:
-            frames = record(frames, x, pos)
-    if recording:
+    plan = SuperDiffPlan(schedule, model_fns, shape, mode=mode, kappa=kappa,
+                         temperature=temperature, bias=bias, dtype=dtype)
+    (x, logq), frames = _run_plan(plan, generator, x_init, noise, num_frames)
+    if num_frames > 0:
         return x, logq, frames
     return x, logq

@@ -28,7 +28,10 @@ are built with (``_FWD_TILE``, ``_BWD_TILE``), as measured by
 A CUDA tensor launches the kernels or raises; a CPU tensor takes the plain
 versions (:func:`_flash_forward_plain`, :func:`_flash_backward_plain`), the
 same functions in plain PyTorch with the kernels' roundings. ``launches``,
-``bwd_dq_launches`` and ``bwd_dkv_launches`` count kernel launches. There is
+``bwd_dq_launches`` and ``bwd_dkv_launches`` count kernel launches;
+``captured_by_shape`` counts the forward launches among them that were
+recorded into a CUDA graph (made under stream capture), which the graph's
+replays launch again without this module seeing them. There is
 no other backward: the reference's ``SUPERDIFF_TPU_FLASH_BWD=xla`` opt-out has
 no counterpart here.
 """
@@ -47,6 +50,7 @@ _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 
 launches = 0                 # forward kernel launches since the last reset
 launches_by_shape = {}       # (S, D, dtype name) -> launches, same events
+captured_by_shape = {}       # the same, of launches made under capture
 bwd_dq_launches = 0          # dQ kernel launches since the last reset
 bwd_dq_launches_by_shape = {}
 bwd_dkv_launches = 0         # dK/dV kernel launches since the last reset
@@ -57,6 +61,7 @@ def reset_launches() -> None:
     global launches, bwd_dq_launches, bwd_dkv_launches
     launches = bwd_dq_launches = bwd_dkv_launches = 0
     launches_by_shape.clear()
+    captured_by_shape.clear()
     bwd_dq_launches_by_shape.clear()
     bwd_dkv_launches_by_shape.clear()
 
@@ -199,6 +204,8 @@ def _launch_fwd(q, k, v, warps: int, bk: int, mt: int, defines=()):
     launches += 1
     key = _shape_key(q)
     launches_by_shape[key] = launches_by_shape.get(key, 0) + 1
+    if torch.cuda.is_current_stream_capturing():
+        captured_by_shape[key] = captured_by_shape.get(key, 0) + 1
     return out, lse
 
 

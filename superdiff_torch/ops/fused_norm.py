@@ -19,7 +19,9 @@ A CUDA tensor launches the kernel or raises; a CPU tensor takes
 plain version (the reference's ``SUPERDIFF_TPU_DISABLE_PALLAS`` and its
 ``H*W >= 256`` rule were TPU heuristics). ``launches`` counts kernel
 launches (one per call: the three passes of the kernel are one launch of
-B4 here), ``launches_by_shape`` by ``(H, W, C, G, film, dtype name)``.
+B4 here), ``launches_by_shape`` by ``(H, W, C, G, film, dtype name)``, and
+``captured_by_shape`` those of them recorded into a CUDA graph (made under
+stream capture), which the graph's replays launch again unseen here.
 """
 
 from __future__ import annotations
@@ -37,12 +39,14 @@ _TARGET_BLOCKS = 1024          # ~8 blocks per SM of the 132
 
 launches = 0                   # kernel launches since the last reset
 launches_by_shape = {}         # (H, W, C, G, film, dtype name) -> launches
+captured_by_shape = {}         # the same, of launches made under capture
 
 
 def reset_launches() -> None:
     global launches
     launches = 0
     launches_by_shape.clear()
+    captured_by_shape.clear()
 
 
 def _geometry(B: int, hw: int, C: int, elem_size: int, aligned: bool):
@@ -155,6 +159,8 @@ def _gn_silu_cuda(x, gamma, beta, num_groups, scale, shift, eps):
     key = (H, W, C, num_groups, scale is not None,
            str(x.dtype).replace("torch.", ""))
     launches_by_shape[key] = launches_by_shape.get(key, 0) + 1
+    if torch.cuda.is_current_stream_capturing():
+        captured_by_shape[key] = captured_by_shape.get(key, 0) + 1
     return y
 
 

@@ -267,8 +267,8 @@ def test_train_state_round_trip_through_numpy():
 def test_port_imports_without_jax(tmp_path):
     """Every superdiff_torch module (and chip_smoke.py) imports, and the toy
     CondUNet runs on CPU, with jax, flax, optax, orbax and superdiff_tpu
-    blocked; the training, checkpoint, CLI, group-norm and reference-import
-    modules are among them."""
+    blocked; the training, checkpoint, CLI, group-norm, reference-import,
+    serving and graphed-sampler modules are among them."""
     script = textwrap.dedent(f"""
         import importlib, pkgutil, sys
         BLOCK = ("jax", "jaxlib", "flax", "optax", "orbax", "superdiff_tpu",
@@ -303,7 +303,8 @@ def test_port_imports_without_jax(tmp_path):
                   "cli.train", "cli.export", "data.transforms",
                   "ops._build", "ops.fused_norm", "ops.packed_norm",
                   "models.unet_ref", "compat.torch_import",
-                  "cli.import_torch"):
+                  "cli.import_torch", "serve", "cli.serve",
+                  "diffusion.graphed"):
             assert "superdiff_torch." + m in mods, m
         bad = [n for n in sys.modules if n.split(".")[0] in BLOCK]
         assert not bad, bad

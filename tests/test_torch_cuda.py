@@ -357,3 +357,157 @@ def test_refunet_convs_ignore_the_process_tf32_default(cuda):
     assert torch.equal(outs[0], outs[1])
     for a, r in zip(got, ref):
         torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-4)
+
+
+def _graph_cases(dev):
+    """Plans of every sampler on a toy CondUNet whose attention level runs
+    B1 (head dim 32), and the eager sampler that each must equal."""
+    from superdiff_torch.diffusion import samplers as ts
+    from superdiff_torch.diffusion import superdiff as tsd
+    from superdiff_torch.diffusion.schedules import make_schedule
+    from superdiff_torch.inference import make_eps_fn_p
+    from superdiff_torch.models.unet import CondUNet
+
+    kw = dict(resolution=16, base_channels=32, channel_mults=(1, 2),
+              num_res_blocks=1, attn_resolutions=(8,), num_heads=2,
+              num_classes=2, time_emb_dim=32, groups=8,
+              compute_dtype=torch.bfloat16, device=dev)
+    m1 = CondUNet(**kw).init_parameters(1).eval()
+    m2 = CondUNet(**kw).init_parameters(2).eval()
+    s = make_schedule(20, device=dev)
+    shape = (4, 16, 16, 1)
+    per = make_eps_fn_p(m1, "per_sample")
+    f = lambda *a: per(m1, *a)
+    y = torch.tensor([0, 1, 2, 0], device=dev)
+    cfg = dict(y=y, guidance_scale=3.0, null_label=2)
+    a1, a2 = make_eps_fn_p(m1, 0), make_eps_fn_p(m2, 1)
+    fns = [lambda x, t: a1(m1, x, t), lambda x, t: a2(m2, x, t)]
+    return {
+        "ddpm": (lambda: ts.DDPMPlan(s, f, shape, y=y),
+                 lambda g: ts.ddpm_sample(s, f, shape, g, y=y)),
+        "ddim_cfg": (lambda: ts.DDIMPlan(s, f, shape, num_steps=7, eta=0.5,
+                                         **cfg),
+                     lambda g: ts.ddim_sample(s, f, shape, g, num_steps=7,
+                                              eta=0.5, **cfg)),
+        "dpmpp": (lambda: ts.DPMppPlan(s, f, shape, num_steps=6, y=y),
+                  lambda g: ts.dpmpp_sample(s, f, shape, g, num_steps=6,
+                                            y=y)),
+        "superdiff_or": (lambda: tsd.SuperDiffPlan(s, fns, shape),
+                         lambda g: tsd.superdiff_sample(s, fns, shape, g)),
+        "superdiff_and": (lambda: tsd.SuperDiffPlan(s, fns, shape,
+                                                    mode="and"),
+                          lambda g: tsd.superdiff_sample(s, fns, shape, g,
+                                                         mode="and")),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ddpm", "ddim_cfg", "dpmpp", "superdiff_or",
+                                  "superdiff_and"])
+def test_graphed_sampler_equals_the_eager_sampler_on_card(cuda, name):
+    """One CUDA graph of one step, replayed per step, gives the eager
+    sampler's bits with the same generator seed (B1 inside the graph: the
+    Python counter moves during warm-up and capture only, and counts the
+    captured step's launches as captured; the replays are counted), twice
+    in a row from the same graph."""
+    from superdiff_torch.diffusion import graphed as gr
+    from superdiff_torch.diffusion.graphed import (WARMUP_STEPS,
+                                                   GraphedSampler)
+
+    make_plan, eager = _graph_cases(cuda)[name]
+    plan = make_plan()
+    fa.reset_launches()
+    with torch.no_grad():
+        plan.start(torch.zeros_like(plan.x))
+        plan.step()
+    per_step = fa.launches
+    assert per_step > 0
+    fa.reset_launches()
+    gr.reset_counts()
+    graphed = GraphedSampler(plan, pool=torch.cuda.graph_pool_handle())
+    assert graphed.graph is not None and gr.captures == 1
+    assert fa.launches == per_step * (WARMUP_STEPS + 1)
+    assert sum(fa.captured_by_shape.values()) == per_step
+    gen = lambda: torch.Generator(device=cuda).manual_seed(3)
+    got = graphed(gen())
+    again = graphed(gen())
+    torch.cuda.synchronize()
+    assert fa.launches == per_step * (WARMUP_STEPS + 1)  # replays: no Python
+    assert gr.replays == 2 * plan.num_steps and gr.captures == 1
+    want = eager(gen())
+    got, again, want = ((o if isinstance(o, tuple) else (o,))
+                        for o in (got, again, want))
+    for a, b, w in zip(got, again, want):
+        assert torch.isfinite(a).all()
+        assert torch.equal(a, w) and torch.equal(b, w)
+
+
+@pytest.mark.cuda
+def test_graphed_refunet_launches_b4_inside_the_graph_on_card(cuda):
+    """A RefUNet DDIM run as one graph per step: B4 (three kernels per
+    GroupNorm->SiLU) is in the graph (the profiler sees its kernels in the
+    replays, 10 per step), and the samples equal the eager run's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from superdiff_torch.diffusion import samplers as ts
+    from superdiff_torch.diffusion.graphed import GraphedSampler
+    from superdiff_torch.diffusion.schedules import make_schedule
+    from superdiff_torch.models.unet_ref import RefUNet
+
+    model = RefUNet(base_channels=8, device=cuda).init_parameters(0).eval()
+    s = make_schedule(50, device=cuda)
+    shape = (2, 32, 32, 1)
+    eps = lambda x, t: model(x, t)
+    plan = ts.DDIMPlan(s, eps, shape, num_steps=5)
+    graphed = GraphedSampler(plan)
+    gen = lambda: torch.Generator(device=cuda).manual_seed(1)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = graphed(gen())
+        torch.cuda.synchronize()
+    n_apply = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+                  and "gn_apply" in e.name)
+    assert n_apply == 10 * 5, n_apply
+    want = ts.ddim_sample(s, eps, shape, gen(), num_steps=5)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_service_captures_once_per_spec_on_card(cuda):
+    """The service on the card: one capture per spec, coalesced requests,
+    a seeded request reproducible and equal to the eager sampler's bits."""
+    import numpy as np
+
+    from superdiff_torch.diffusion import samplers as ts
+    from superdiff_torch.diffusion.schedules import make_schedule
+    from superdiff_torch.inference import make_eps_fn_p
+    from superdiff_torch.models.unet import CondUNet
+    from superdiff_torch.serve import SampleSpec, SamplerService
+
+    model = CondUNet(resolution=16, base_channels=32, channel_mults=(1, 2),
+                     num_res_blocks=1, attn_resolutions=(8,), num_heads=2,
+                     num_classes=2, time_emb_dim=32, groups=8,
+                     device=cuda).init_parameters(4).eval()
+    s = make_schedule(20, device=cuda)
+    svc = SamplerService(model, s, resolution=16, conditional=True,
+                         batch_size=4, autostart=False)
+    spec = SampleSpec("ddim", 5)
+    try:
+        a = svc.submit(1, label=0, spec=spec)
+        b = svc.submit(2, label=1, spec=spec)
+        assert svc.step_once() == 2 and svc.stats["compiles"] == 1
+        assert a.result.shape == (1, 16, 16, 1) and b.error is None
+        first = svc.submit(3, label=1, spec=spec, seed=5)
+        svc.step_once()
+        second = svc.submit(3, label=1, spec=spec, seed=5)
+        svc.step_once()
+        assert svc.stats["compiles"] == 1 and svc.stats["graph_pool_gb"] > 0
+        np.testing.assert_array_equal(first.result, second.result)
+        fn = make_eps_fn_p(model, "per_sample")
+        y = torch.tensor([1, 1, 1, 2], device=cuda)
+        want = ts.ddim_sample(s, lambda *a: fn(model, *a), (4, 16, 16, 1),
+                              torch.Generator(device=cuda).manual_seed(5),
+                              num_steps=5, y=y, null_label=2)
+        np.testing.assert_array_equal(first.result, want[:3].cpu().numpy())
+    finally:
+        svc.close()
