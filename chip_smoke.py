@@ -25,9 +25,10 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
        the delta = rowsum(dO o O) expression that feeds both kernels, and
        B2 + B3 + delta beside SDPA's whole backward (which has its own
        delta pass);
-   (c) the fused GroupNorm+FiLM+SiLU (B4) at the RefUNet's batch-16 shapes
-       (C, G) = (1, 1), (64, 4), (128, 4), FiLM cases, group widths 3 and
-       12, a ragged 7x9 image; a rerun must give the same bits;
+   (c) the fused GroupNorm+FiLM+SiLU (B4) in its folded mode (the
+       RefUNet's) at the RefUNet's batch-16 shapes (C, G) = (1, 1),
+       (64, 4), (128, 4), FiLM cases, group widths 3 and 12, a ragged 7x9
+       image; a rerun must give the same bits;
    CUDA-event times of each kernel, its plain version and the library
    yardstick (F.scaled_dot_product_attention forward / backward for B1-B3;
    F.group_norm + F.silu for B4; timed only as yardsticks, the port never
@@ -51,23 +52,30 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
        share per step, B1 kernels per replay);
    (b) one denoiser call at batch 2, bf16 kernel path on the card against the
        float32 plain path on the CPU; then the denoiser call's time at batch
-       16 and a torch.profiler breakdown at batch 16 and 4; then every
-       GroupNorm->(FiLM)->SiLU chain of one batch-16 call, counted by shape
-       and timed against B4 on the same inputs (a measurement for a later
-       decision; the CondUNet does not call B4);
+       16 and a torch.profiler breakdown at batch 16 and 4; then the
+       standing check of B4 on the CondUNet's path: every
+       GroupNorm->(FiLM)->SiLU chain of one batch-16 call (51, counted by
+       shape through B4's wrapper), and at each shape policy-mode B4 in
+       both of its regimes against the plain chain (within 2 bf16 ulps,
+       under 1 % of elements differing; the counts printed), with B4's
+       device time, the bound, the plain chain's and the F.group_norm +
+       F.silu yardstick's, and the plain chain's forward + backward under
+       the training policy (what a B4 backward kernel would take over);
+       and the attention blocks' GroupNorm (no SiLU, not routed to B4);
    (c) superdiff_torch.cli.sample SuperDiff OR and AND of two differently
        seeded wide256 models, batch 4, T=1000, graphed; OR also eagerly
        (samples and logq bit for bit); AND's eager and graphed plans over
        the last 100 steps from one state, as in (a') (x and logq bit for
        bit), and ms per step of both;
-   every run checks finite outputs and 8 forward launches per denoiser call
-   through the wrapper (an eager run: every call; a graphed run: the
-   diffusion/graphed.py WARMUP_STEPS warm-up calls and the captured one).
-   A graph's replays launch B1 without the wrapper: a graphed run's
-   launches are the wrapper's launches outside the capture plus the
-   launches it recorded into the graph times the replays that
-   diffusion/graphed.py counted in the run (run_launches), and the
-   profiler counts the kernels of graph replays as a cross-check;
+   every run checks finite outputs and 8 B1 and 51 B4 launches per
+   denoiser call through the wrappers (an eager run: every call; a graphed
+   run: the diffusion/graphed.py WARMUP_STEPS warm-up calls and the
+   captured one). A graph's replays launch B1 and B4 without the wrappers:
+   a graphed run's launches are the wrapper's launches outside the capture
+   plus the launches it recorded into the graph times the replays that
+   diffusion/graphed.py counted in the run (run_launches: 51 B4 per DDPM
+   replay), and the profiler counts the kernels of graph replays as a
+   cross-check;
 5. the training slice, full-width wide256 at 256², bf16 compute:
    (a) one loss at batch 2: gradients through the kernels against gradients
        through their plain versions on the card (relative L2 over all leaves,
@@ -76,7 +84,9 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
        epochs of 10 optimizer steps (the first is warm-up): images per
        second and ms per step of the last two, peak memory, validation loss
        finite and falling on the fixed stream, exactly 8/8/8 launches of
-       B1/B2/B3 per train step and 8 of B1 per validation batch;
+       B1/B2/B3 per train step and 8 of B1 per validation batch; no B4 in
+       a train step (the chains run under autograd) and 51 per validation
+       batch;
    (c) a short leg with model.remat=true and training.grad_accum=2 (16 B1
        launches per microbatch), and one in which this script swaps the
        backward kernels for autograd of the plain softmax attention, for its
@@ -103,7 +113,8 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
        each), with 10 B4 per graph replay from the profiler;
    (c) cli.sample SuperDiff OR of the two runs (TB x PNEUMONIA), batch 4,
        T=1000, graphed: finite samples and logq;
-   (d) one wide256 call: 0 B4 launches (the CondUNet is untouched);
+   (d) one wide256 call without gradients: 51 B4 launches (the
+       CondUNet's chains) and 8 B1;
    (e) cli.train --synthetic on model.preset=ref, batch 4: loss finite and
        falling, 10 B4 launches per step and per validation batch; gradients
        of one loss at batch 2 with B4 against the plain version;
@@ -111,14 +122,18 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    CLI run does; the RefUNet's convolutions ignore it;
 7. serving: superdiff_torch.cli.serve's loading (load_service) of the two
    wide256 run dirs at batch 16, the SamplerService and its HTTP app on an
-   ephemeral port: warm-up DDIM-50 (one capture); three concurrent unseeded
-   requests (num 4, 4, 8; labels 0, 1 and the null label) that must
-   coalesce into one batch; one seeded request twice (the same bytes, and
+   ephemeral port: warm-up DDIM-50 (one capture, 51 B4 in it); three
+   concurrent unseeded requests (num 4, 4, 8; labels 0, 1 and the null
+   label) that must coalesce into one batch of 50 replays (51 B4 each); one seeded request twice (the same bytes, and
    the eager sampler's bits); DPM++-10; SuperDiff OR with logq; then a
    second service on the imported RefUNet run, one DDIM-50 request (B4
    inside the graph); latencies, samples/s, captures and the graph pool;
 8. a JSON line per kernel shape, the card line, the kernels line, and last
-   the result line {"ok": true, "device": {...}}. A B1/B4 row's
+   the result line {"ok": true, "device": {...}}. The kernels line holds
+   B1 at the path shapes, B2 / B3 (their launches from 5b), policy-mode
+   B4 at the 18 chain shapes of wide256 (13 sizes, FiLM or not; the
+   regime launch_geometry picks, timed in 4b) and folded-mode B4 at the
+   RefUNet's three. A B1/B4 row's
    `launches` is its main-path run's (4a, 6a) launches at that shape,
    run_launches of three counts taken in that run and printed beside it:
    `wrapper_launches`, `captured_per_replay` and `graph_replays`.
@@ -174,7 +189,11 @@ WIDE256 = ["--set", "model.preset=wide256", "--set",
            "training.resolution=256", "--set", "training.vis_every=0"]
 GN_SRC = "superdiff_torch/csrc/group_norm_silu.cu"
 TPU_GN = "superdiff_tpu/ops/fused_norm.py:78"
-GN_KERNELS = ("gn_stats", "gn_finalize", "gn_apply")
+# B4's kernels: one gn_cluster per call in the cluster regime, gn_stats,
+# gn_finalize and gn_apply in the three-pass one (B4_CALL_KERNELS: one of
+# them per call, in both)
+GN_KERNELS = ("gn_cluster", "gn_stats", "gn_finalize", "gn_apply")
+B4_CALL_KERNELS = ("gn_cluster", "gn_apply")
 # B4 shapes (B, H, W, C, G, film): the RefUNet path at batch 16 (first three,
 # no FiLM), FiLM at a wide256 shape, group widths 3 and 12, ragged 7x9
 GN_PATH_SHAPES = [(16, 256, 256, 1, 1, False), (16, 256, 256, 64, 4, False),
@@ -188,6 +207,7 @@ GN_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
 REF = ["--set", "model.preset=ref", "--set", "model.conditional=false",
        "--set", "training.resolution=256", "--set", "training.vis_every=0"]
 REF_CALLS_B4 = 10        # GroupNorm->SiLU prologues per RefUNet call
+WIDE256_CALLS_B4 = 51    # GroupNorm->(FiLM)->SiLU chains per wide256 call
 # RefUNet kernel path vs plain path, one call / one gradient, float32 (its
 # convolutions IEEE): only B4's summation order differs
 REF_REL_TOL = 1e-4
@@ -390,45 +410,20 @@ def phase_bwd_kernels(fa, sm_clock_hz):
     return rows
 
 
-def gn_inputs(B, H, W, C, film, dtype, seed=0):
-    import torch
-
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    r = lambda *shape: torch.randn(shape, generator=g, device="cuda")
-    x = (0.5 + 2 * r(B, H, W, C)).to(dtype)
-    gamma, beta = 1 + 0.1 * r(C), 0.1 * r(C)
-    scale = shift = None
-    if film:
-        scale, shift = 0.2 * r(B, C), 0.2 * r(B, C)
-    return x, gamma, beta, scale, shift
-
-
-def gn_library(x, gamma, beta, G, scale, shift):
-    """The library yardstick of B4's function: ``F.group_norm`` on the
-    channels-last NCHW view, the FiLM FMA where there is one, ``F.silu``
-    (no single torch call computes the chain)."""
-    import torch.nn.functional as F
-
-    h = F.group_norm(x.permute(0, 3, 1, 2), G, gamma.to(x.dtype),
-                     beta.to(x.dtype), 1e-5)
-    if scale is not None:
-        h = (h * (1 + scale.to(x.dtype))[:, :, None, None]
-             + shift.to(x.dtype)[:, :, None, None])
-    return F.silu(h)
-
-
 def phase_gn_kernels(fn):
     """B4 against its plain version at every listed shape, f32 and bf16:
     times of the kernel (events and device), the plain version and the
     library chain, the bound (x read once, y written once) and the error."""
     import torch
 
+    from superdiff_torch.tools.tune_group_norm import chain_inputs, gn_library
+
     rows = {}
     for (B, H, W, C, G, film) in GN_PATH_SHAPES + GN_EXTRA_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).replace("torch.", "")
-            x, gamma, beta, scale, shift = gn_inputs(B, H, W, C, film, dtype,
-                                                     seed=C + G)
+            x, gamma, beta, scale, shift = chain_inputs(B, H, W, C, film,
+                                                        dtype, seed=C + G)
             call = lambda: fn.fused_groupnorm_silu(x, gamma, beta, G, scale,
                                                    shift)
             n0 = fn.launches
@@ -468,71 +463,88 @@ def phase_gn_kernels(fn):
 
 
 def wide256_norm_chains(fn, model):
-    """Every GroupNorm->(FiLM)->SiLU chain one wide256 denoiser call runs at
-    batch 16 under the bf16 sampling policy (ResBlock norm_0 / norm_1 and
-    out_norm; the attention norm has no SiLU), counted by shape, then the
-    port's chain as the model runs it against B4 on the same inputs. For a
-    later decision only: the CondUNet does not call B4."""
+    """Phase 4b's standing check of B4 on the CondUNet's path: every
+    GroupNorm->(FiLM)->SiLU chain one wide256 call runs at batch 16 under
+    the bf16 sampling policy (ResBlock norm_0 / norm_1 + FiLM and out_norm;
+    the attention norm has no SiLU), counted through B4's wrapper (51 in
+    all); then at each shape policy-mode B4 in both regimes against the
+    plain chain (tools/tune_group_norm.py::chain_row: bf16 ulps and the
+    share of elements that differ at all), with B4's device time, the
+    bound, the plain chain's and the F.group_norm + F.silu yardstick's; and
+    the plain chain's forward and forward + backward device time under the
+    training policy (float32 norm passes, autograd), the work of a B4
+    backward kernel; and the attention blocks' GroupNorm (no SiLU, not
+    routed to B4): shapes, calls and device time."""
     import torch
-    import torch.nn.functional as F
 
-    from superdiff_torch.models.layers import GroupNorm
+    from superdiff_torch.models.layers import SelfAttention2D
+    from superdiff_torch.tools import tune_group_norm as tg
+    from superdiff_torch.tools.timing import kernel_device_ms
 
-    seen, hooks = {}, []
-    for name, m in model.named_modules():
-        leaf = name.rsplit(".", 1)[-1]
-        if isinstance(m, GroupNorm) and leaf in ("norm_0", "norm_1",
-                                                 "out_norm"):
-            def hook(mod, args, _out, film=(leaf == "norm_1")):
-                x = args[0]
-                key = (tuple(x.shape), mod.num_groups, film,
-                       str(x.dtype).replace("torch.", ""))
-                seen.setdefault(key, [mod, 0])[1] += 1
-            hooks.append(m.register_forward_hook(hook))
-    with torch.no_grad():
-        model(torch.randn((16, 256, 256, 1), device="cuda"),
-              torch.full((16,), 500, device="cuda", dtype=torch.long),
-              torch.zeros((16,), device="cuda", dtype=torch.long))
-    for h in hooks:
-        h.remove()
-    nd = model.norm_dtype
-    rows, saved = [], {}
-    for (shape, G, film, dname), (mod, count) in sorted(
-            seen.items(), key=lambda kv: -kv[1][1] * kv[0][0][1]):
-        B, H, W, C = shape
-        x, _, _, scale, shift = gn_inputs(B, H, W, C, film,
-                                          getattr(torch, dname), seed=C)
-        w, b = mod.weight, mod.bias
+    attn = {}
 
-        def chain():
-            h = mod(x, nd)
-            if film:
-                h = (h * (1.0 + scale.to(nd)[:, None, None, :])
-                     + shift.to(nd)[:, None, None, :])
-            return F.silu(h)
+    def seen(mod, args):
+        key = (tuple(args[0].shape), str(args[0].dtype))
+        attn.setdefault(key, [mod, 0])[1] += 1
 
-        kern = lambda: fn.fused_groupnorm_silu(x, w, b, G, scale, shift)
+    hooks = [m.norm.register_forward_pre_hook(seen)
+             for m in model.modules() if isinstance(m, SelfAttention2D)]
+    try:
+        shapes = tg.wide256_chain_shapes(fn, model, 16)
+    finally:
+        for h in hooks:
+            h.remove()
+    attn_rows = []
+    for (shape, dname), (mod, count) in sorted(attn.items()):
+        x = torch.randn(shape, device="cuda").to(getattr(torch, dname[6:]))
         with torch.no_grad():
-            row = dict(shape=list(shape), groups=G, film=film, dtype=dname,
-                       launches_per_call=count,
-                       chain_ms=cuda_time_ms(chain, 30),
-                       b4_ms=cuda_time_ms(kern, 30),
-                       chain_device_ms=kernel_device_ms(chain, kernel=None),
-                       b4_device_ms=kernel_device_ms(kern, kernel=None),
-                       max_abs_diff=(chain().float() - kern().float()
-                                     ).abs().max().item())
-        for k in ("", "device_"):
-            a, b = row[f"chain_{k}ms"], row[f"b4_{k}ms"]
-            measured = isinstance(a, float) and isinstance(b, float)
-            saved[k] = (saved.get(k, 0.0) + count * (a - b)
-                        if measured and saved.get(k, 0.0) != "not measured"
-                        else "not measured")
+            ms = kernel_device_ms(lambda: mod(x, model.norm_dtype),
+                                  kernel=None)
+        attn_rows.append(dict(shape=list(shape), dtype=dname[6:],
+                              calls=count, device_ms=ms))
+    if sum(shapes.values()) != WIDE256_CALLS_B4:
+        raise AssertionError(f"one wide256 call launched B4 "
+                             f"{sum(shapes.values())} times, expected "
+                             f"{WIDE256_CALLS_B4}: {shapes}")
+    regimes = ("cluster", "three_pass")
+    rows = []
+    for key, count in sorted(shapes.items()):
+        row = tg.chain_row(fn, 16, key, count, model.norm_dtype, regimes)
+        if row.get("failed"):
+            raise AssertionError(f"policy-mode B4 disagrees with the plain "
+                                 f"chain at {key}: {json.dumps(row)}")
+        H, W, C, G, film, dname = key
+        leaves = [a.detach().requires_grad_() if a is not None else None
+                  for a in tg.chain_inputs(16, H, W, C, film,
+                                           getattr(torch, dname))]
+        g = torch.randn((16, H, W, C), device="cuda")
+
+        def fwd():
+            return fn.gn_film_silu_policy_plain(
+                leaves[0], leaves[1], leaves[2], G, torch.float32,
+                leaves[3], leaves[4])
+
+        row["train_chain_fwd_device_ms"] = kernel_device_ms(fwd, kernel=None)
+        wanted = [a for a in leaves if a is not None]
+        row["train_chain_fwd_bwd_device_ms"] = kernel_device_ms(
+            lambda: torch.autograd.grad(fwd(), wanted, g), kernel=None)
         rows.append(row)
         log("wide256_chain " + json.dumps(row))
-    return dict(rows=rows, chains_per_call=sum(r["launches_per_call"]
-                                               for r in rows),
-                sum_launches_x_chain_minus_b4_ms=saved[""],
-                sum_launches_x_chain_minus_b4_device_ms=saved["device_"])
+    summary = tg.summarize(rows, regimes)
+    for k in ("train_chain_fwd_device_ms", "train_chain_fwd_bwd_device_ms"):
+        vals = [r[k] for r in rows]
+        summary[k] = (sum(r["launches_per_call"] * r[k] for r in rows)
+                      if all(isinstance(v, float) for v in vals)
+                      else "not measured")
+    summary["attention_norm"] = dict(
+        rows=attn_rows, calls=sum(r["calls"] for r in attn_rows),
+        device_ms_per_call=(sum(r["calls"] * r["device_ms"]
+                                for r in attn_rows)
+                            if all(isinstance(r["device_ms"], float)
+                                   for r in attn_rows)
+                            else "not measured"))
+    return dict(rows=rows, chains_per_call=sum(shapes.values()),
+                summary=summary)
 
 
 def reference_state_dict(seed, base=64, time_emb_dim=256):
@@ -734,7 +746,7 @@ def train_step_alone(fa, tcfg, model_from_config, make_schedule, training,
                                  for k, v in top])
 
 
-def phase_training(fa, work, run1, tcfg, model_from_config, load_run,
+def phase_training(fa, fn, work, run1, tcfg, model_from_config, load_run,
                    sample):
     """The training slice (phase 5 of the module docstring)."""
     import numpy as np
@@ -760,6 +772,7 @@ def phase_training(fa, work, run1, tcfg, model_from_config, load_run,
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launches()
+    fn.reset_launches()
     tic = time.time()
     main_dir, metrics = run_train_cli(
         train_cli, work, "main", B, EPOCHS, STEPS,
@@ -775,6 +788,8 @@ def phase_training(fa, work, run1, tcfg, model_from_config, load_run,
     if counts != expect:
         raise AssertionError(f"training launched (B1, B2, B3) = {counts}, "
                              f"expected {expect}")
+    # B4 in the validation batches (no gradients), not in the train steps
+    check_b4(fn.launches, EPOCHS * VAL, "training (validation batches)")
     tr, va = epoch_rows(metrics, "avg_loss"), epoch_rows(metrics, "val_loss")
     losses = [m["avg_loss"] for m in tr] + [m["val_loss"] for m in va]
     if len(tr) != EPOCHS or len(va) != EPOCHS or not np.isfinite(losses).all():
@@ -792,7 +807,8 @@ def phase_training(fa, work, run1, tcfg, model_from_config, load_run,
         train_loss_by_epoch=[m["avg_loss"] for m in tr],
         val_loss_by_epoch=[m["val_loss"] for m in va],
         grad_norm_last=tr[-1]["grad_norm"], peak_mem_gb=peak_gb,
-        launches=dict(B1=counts[0], B2=counts[1], B3=counts[2]),
+        launches=dict(B1=counts[0], B2=counts[1], B3=counts[2],
+                      B4=fn.launches),
         launches_by_shape={k: {str(s): n for s, n in v.items()}
                            for k, v in train_launches.items()},
         whole_leg_s=main_s)
@@ -949,10 +965,10 @@ def run_cli(sample, argv, eager=False):
 def sample_pair(sample, argv, what):
     """The same cli.sample run eagerly ("before") and through its CUDA
     graph, with the same seed: outputs equal bit for bit. Returns a row of
-    both runs' s per batch, capture s, peak GB and B1 launches, and each
-    run's counts: the wrapper's B1 launches by shape (all, and those made
-    under capture), the graphs captured and replayed, and the run's B1
-    launches by shape (:func:`run_launches`)."""
+    both runs' s per batch, capture s, peak GB and B1 / B4 launches, and
+    each run's counts: the wrappers' B1 / B4 launches by shape (all, and
+    those made under capture), the graphs captured and replayed, and the
+    run's B1 / B4 launches by shape (:func:`run_launches`)."""
     import numpy as np
     import torch
 
@@ -977,12 +993,20 @@ def sample_pair(sample, argv, what):
                            b1_captured=dict(fa.captured_by_shape),
                            b1_run=run_launches(fa.launches_by_shape,
                                                fa.captured_by_shape),
+                           b4_by_shape=dict(fn.launches_by_shape),
+                           b4_captured=dict(fn.captured_by_shape),
+                           b4_run=run_launches(fn.launches_by_shape,
+                                               fn.captured_by_shape),
                            captures=graphed.captures,
                            replays=graphed.replays)
         row[tag] = dict(s_per_batch=secs, capture_s=cap,
                         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                         b1_wrapper_launches=fa.launches,
                         b1_run_launches=sum(counts[tag]["b1_run"].values()),
+                        b4_wrapper_launches=fn.launches,
+                        b4_captured_per_replay=sum(
+                            fn.captured_by_shape.values()),
+                        b4_run_launches=sum(counts[tag]["b4_run"].values()),
                         graph_replays=graphed.replays)
         d = f"{out_dir}_{tag}"
         outs[tag] = [np.load(os.path.join(d, "samples.npy"))]
@@ -1060,8 +1084,8 @@ def profile_denoiser(model, batch, calls=5, kernels=FLASH_KERNELS[:1]):
 def graph_replay_profile(sampler, replays=20):
     """torch.profiler over ``replays`` steps of a captured sampler (the
     step's draw + one replay each): wall and device-busy ms per step, the
-    device's idle share, and kernels per replay (all; B1; B4's apply
-    pass)."""
+    device's idle share, and kernels per replay (all; B1; B4: one
+    gn_cluster or gn_apply per call)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1089,7 +1113,7 @@ def graph_replay_profile(sampler, replays=20):
                 else "not measured",
                 kernels_per_replay=len(kern) / replays,
                 b1_per_replay=count("flash_fwd_kernel"),
-                b4_per_replay=count("gn_apply"))
+                b4_per_replay=sum(count(k) for k in B4_CALL_KERNELS))
 
 
 def ddpm_plan(model, batch, label=0):
@@ -1242,10 +1266,14 @@ def phase_serving(fa, fn, run1, run2, ref_run):
     tic = time.time()
     service, cfg, spec = serve_cli.load_service(args)
     fa.reset_launches()
+    fn.reset_launches()
     warm_s = service.warmup(spec)
     out["load_s"] = time.time() - tic - warm_s
+    b4_captured = sum(fn.captured_by_shape.values())
     out["warmup"] = dict(spec=spec.__dict__, s=warm_s,
-                         b1_launches=fa.launches)
+                         b1_launches=fa.launches, b4_launches=fn.launches,
+                         b4_captured_per_replay=b4_captured)
+    check_b4(b4_captured, 1, "the captured serving step")
     base, stop = _serve_http(service, {"run_dir": run1,
                                        "preset": cfg.model.preset})
     try:
@@ -1256,6 +1284,8 @@ def phase_serving(fa, fn, run1, run2, ref_run):
 
         # three concurrent unseeded requests, one spec: one coalesced batch
         before = dict(service.stats)
+        graphed.reset_counts()
+        b4_wrapper = fn.launches
         bodies = [dict(num=4, label=0), dict(num=4, label=1),
                   dict(num=8)]          # the last: the null label
         results = [None] * 3
@@ -1286,7 +1316,14 @@ def phase_serving(fa, fn, run1, run2, ref_run):
                 raise AssertionError(f"coalesced response {x.shape}")
         out["coalesced"] = dict(
             requests=bodies, latency_s=[r[1] for r in results],
-            batch_wall_s=wall, samples_per_s=16 / wall)
+            batch_wall_s=wall, samples_per_s=16 / wall,
+            graph_replays=graphed.replays,
+            b4_run_launches=fn.launches - b4_wrapper
+            + b4_captured * graphed.replays)
+        if fn.launches != b4_wrapper or graphed.replays != 50:
+            raise AssertionError(f"coalesced DDIM-50: {graphed.replays} "
+                                 f"replays, {fn.launches - b4_wrapper} B4 "
+                                 f"launches outside the graph")
 
         # one seeded request, twice: the same bytes, and the eager sampler's
         seeded = dict(num=3, label=1, method="ddim", steps=50, seed=1234,
@@ -1523,7 +1560,8 @@ def phase_ref(fa, fn, work, sample, load_run, wide_model):
     log("phase 6c ref SuperDiff OR TB x PNEUMONIA: "
         + json.dumps(out["superdiff_or"]))
 
-    # (d) the CondUNet is untouched: one wide256 call launches no B4
+    # (d) the CondUNet's chains go through B4: one wide256 call without
+    # gradients launches 51 B4 (and 8 B1)
     fa.reset_launches()
     fn.reset_launches()
     with torch.no_grad():
@@ -1531,10 +1569,11 @@ def phase_ref(fa, fn, work, sample, load_run, wide_model):
                    torch.tensor([5, 900], device="cuda"),
                    torch.tensor([0, 1], device="cuda"))
     torch.cuda.synchronize()
-    if fn.launches != 0 or fa.launches != 8:
+    if fn.launches != WIDE256_CALLS_B4 or fa.launches != 8:
         raise AssertionError(f"wide256 call: {fn.launches} B4 and "
-                             f"{fa.launches} B1 launches, expected 0 and 8")
-    log("phase 6d wide256 call: 0 B4 launches, 8 B1")
+                             f"{fa.launches} B1 launches, expected "
+                             f"{WIDE256_CALLS_B4} and 8")
+    log(f"phase 6d wide256 call: {WIDE256_CALLS_B4} B4 launches, 8 B1")
 
     # (e) cli.train on the ref preset, then gradients kernel vs plain
     STEPS, EPOCHS, VAL = 8, 3, 2
@@ -1638,6 +1677,14 @@ def check_launches(launches, calls, what):
                              f"{calls} denoiser calls, expected {expect}")
 
 
+def check_b4(launches, calls, what):
+    """51 B4 launches per wide256 denoiser call without gradients."""
+    expect = WIDE256_CALLS_B4 * calls
+    if launches != expect:
+        raise AssertionError(f"{what}: {launches} B4 launches for {calls} "
+                             f"denoiser calls, expected {expect}")
+
+
 def main() -> int:
     if not IN_CHECKOUT:
         print("chip_smoke.py must run from a checkout of the repository "
@@ -1714,6 +1761,12 @@ def main() -> int:
                              f"captures, {main_counts['replays']} replays")
     check_launches(sum(main_launches.values()), 1000 + WARMUP_STEPS,
                    "graphed DDPM-1000 (replays and warm-up)")
+    check_b4(ddpm_counts["eager"]["b4"], 1000, "eager DDPM-1000")
+    check_b4(main_counts["b4"], WARMUP_STEPS + 1, "graphed DDPM")
+    check_b4(sum(main_counts["b4_captured"].values()), 1,
+             "the captured DDPM step")
+    check_b4(sum(main_counts["b4_run"].values()), 1000 + WARMUP_STEPS,
+             "graphed DDPM-1000 (replays and warm-up)")
     if ddpm["shape"] != [16, 256, 256, 1]:
         raise AssertionError(f"DDPM samples {ddpm['shape']}")
     log("phase 4a DDPM-1000 batch 16, eager then graphed (s per batch = ms "
@@ -1750,8 +1803,9 @@ def main() -> int:
         log("profile " + json.dumps(p))
     del ref
     chains = wide256_norm_chains(fn, model)
-    log("phase 4b wide256 GroupNorm->SiLU chains vs B4 (measurement only): "
-        + json.dumps({k: v for k, v in chains.items() if k != "rows"}))
+    log(f"phase 4b wide256 GroupNorm->(FiLM)->SiLU chains through B4 "
+        f"({card_line}): " + json.dumps({k: v for k, v in chains.items()
+                                        if k != "rows"}))
 
     # (a') DDPM at batch 4: eager over 100 steps, graphed over all 1000;
     # and the graph replays' profile at batch 16 and 4
@@ -1763,6 +1817,10 @@ def main() -> int:
         if round(prof["b1_per_replay"]) != 8:
             raise AssertionError(f"graph replay runs {prof['b1_per_replay']}"
                                  " B1 kernels per step, expected 8")
+        if round(prof["b4_per_replay"]) != WIDE256_CALLS_B4:
+            raise AssertionError(f"graph replay runs {prof['b4_per_replay']}"
+                                 f" B4 kernels per step, expected "
+                                 f"{WIDE256_CALLS_B4}")
         log("phase 4a' DDPM steps, eager vs graphed: " + json.dumps(row))
 
     # (c) SuperDiff OR and AND, batch 4, T=1000, two models, graphed. OR
@@ -1782,11 +1840,15 @@ def main() -> int:
             row, (xs, logq), counts = sample_pair(sample, argv,
                                                   "SuperDiff or")
             check_launches(counts["eager"]["b1"], 2000, "eager SuperDiff or")
-            graph_b1 = counts["graph"]["b1"]
+            check_b4(counts["eager"]["b4"], 2000, "eager SuperDiff or")
+            check_b4(sum(counts["graph"]["b4_run"].values()),
+                     2 * (1000 + WARMUP_STEPS), "graphed SuperDiff or")
+            graph_b1, graph_b4 = counts["graph"]["b1"], counts["graph"]["b4"]
         else:
             fa.reset_launches()
+            fn.reset_launches()
             secs, cap_s = run_cli(sample, argv)
-            graph_b1 = fa.launches
+            graph_b1, graph_b4 = fa.launches, fn.launches
             xs = np.load(os.path.join(out_c, "samples.npy"))
             with open(os.path.join(out_c, "logq.json")) as f:
                 lq = json.load(f)
@@ -1798,6 +1860,7 @@ def main() -> int:
                                          timed_steps=100))
         check_launches(graph_b1, 2 * (WARMUP_STEPS + 1),
                        f"graphed SuperDiff {mode}")
+        check_b4(graph_b4, 2 * (WARMUP_STEPS + 1), f"graphed SuperDiff {mode}")
         if (xs.shape != (4, 256, 256, 1) or logq.shape != (2, 4)
                 or not (np.isfinite(xs).all() and np.isfinite(logq).all())):
             raise AssertionError(f"SuperDiff {mode}: samples {xs.shape}, "
@@ -1808,7 +1871,7 @@ def main() -> int:
     del model2
 
     training_out, train_launches = phase_training(
-        fa, work, run1, tcfg, model_from_config, load_run, sample)
+        fa, fn, work, run1, tcfg, model_from_config, load_run, sample)
 
     # the reference-model slice runs under PyTorch's default cuDNN TF32 (on),
     # as a user's cli.sample / cli.train would; the RefUNet's convolutions
@@ -1872,6 +1935,31 @@ def main() -> int:
             if kernels[-1]["launches"] == 0:
                 raise AssertionError(f"{name} never launched at path shape "
                                      f"{(B, S, H, D)} in training")
+    chain_rows = {tuple(r["shape"][1:]) + (r["groups"], r["film"]): r
+                  for r in chains["rows"]}
+    for key, n_run in sorted(main_counts["b4_run"].items()):
+        H, W, C, G, film, dname = key
+        row = chain_rows[(H, W, C, G, film)]
+        picked = next(v for k, v in row.items() if k.endswith("*"))
+        kernels.append(dict(
+            name=f"group_norm_silu_policy[bf16 B16 {H}x{W} C{C} G{G}"
+                 f"{' FiLM' if film else ''}]",
+            route="cuda", source=GN_SRC, replaces=TPU_GN, launches=n_run,
+            wrapper_launches=main_counts["b4_by_shape"].get(key, 0),
+            captured_per_replay=main_counts["b4_captured"].get(key, 0),
+            graph_replays=main_counts["replays"],
+            launches_per_call=row["launches_per_call"],
+            regime=picked["geometry"]["regime"],
+            max_abs_err=picked["max_abs_err"], max_ulps=picked["max_ulps"],
+            share_differing=picked["share_differing"], ms=picked["ms"],
+            kernel_device_ms=picked["device_ms"], plain_ms=row["plain_ms"],
+            plain_device_ms=row["plain_device_ms"],
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            library_ms=row["library_ms"],
+            library_device_ms=row["library_device_ms"]))
+        if kernels[-1]["captured_per_replay"] == 0:
+            raise AssertionError(f"B4 never launched at path shape {key} "
+                                 "in the DDPM graph")
     for (B, H, W, C, G, film) in GN_PATH_SHAPES:
         row = gn_rows[(B, H, W, C, G, film, "float32")]
         kernels.append(dict(

@@ -5,45 +5,71 @@
 // Replaces the TPU kernel superdiff_tpu/ops/fused_norm.py::_gn_silu_kernel
 // (launched by _pallas_gn_silu). Same function, not the same blocks: the
 // TPU kernel keeps one sample's whole (H, W, chunk) slab in VMEM and reduces
-// it in one grid cell. Here one block per (sample, group) would give 64
-// blocks for the RefUNet at batch 16 (half of the 132 SMs), each reducing
-// 2 M elements, so the work is cut along the flat H*W*C axis instead, in
-// three short launches on the caller's stream:
-//
-//   1. gn_stats: grid (tiles, B). A tile is a contiguous run of whole rows
-//      (H*W positions x C channels). Each thread owns a fixed set of
-//      channels (the block's stride S = threads * VEC is a multiple of C),
-//      sums x and x^2 for them in float32 registers over the tile, and the
-//      block folds the threads together with a fixed shared-memory tree
-//      (S / C is a power of two). Out: per-(sample, tile, channel) partial
-//      sums in a float32 scratch that the wrapper allocates.
-//   2. gn_finalize: grid (B). Sums the partials over tiles, then over each
-//      group's channels, in a fixed order; mean, var = max(E[x^2] - E[x]^2,
-//      0), rsqrt(var + eps); folds gamma, beta and FiLM (y*(1+scale)+shift)
-//      into one float32 multiplier and offset per (sample, channel).
-//   3. gn_apply: the same grid as gn_stats. y = x*mul + off, y / (1 +
-//      exp(-y)), one cast on the store.
-//
-// Deterministic: fixed reduction orders and no float atomics, so a rerun
-// gives the same bits (the port's bit-exact resume rests on it).
-//
-// Numerics follow the plain reference (_xla_gn_silu), not two quirks of
-// the TPU kernel: the variance is clamped at 0, and the FMA and the SiLU
-// run in float32 whatever the storage dtype (the TPU kernel does both in
-// the storage dtype).
+// it in one grid cell; a block here has at most 227 KB of shared memory.
 //
 // What bounds it on this card: bytes. The function reads x once and writes
-// y once (the RefUNet's largest call, 16 x 256 x 256 x 128 float32, moves
-// 2 x 537 MB); the arithmetic is a few flops per element. This design
-// reads x twice (a batch is far larger than the 50 MB L2), so it can reach
-// at best 2/3 of the bound. Loads and stores are 16 bytes along the flat
-// axis (VEC = 4 float32 or 8 bfloat16) when H*W*C allows, else scalar.
+// y once; the arithmetic is a few flops per element. Two regimes, picked
+// per shape by the Python geometry (ops/fused_norm.py::launch_geometry):
+//
+//   gn_cluster, one launch, for batches of up to 32 MB (at batch 16 every
+//     CondUNet chain up to 64^2 x 256; at batch 4 all of them): one
+//     thread-block cluster of K = 4-16 blocks per sample (16 is
+//     non-portable; launched with cudaLaunchKernelEx). Each block owns a
+//     contiguous share of the sample's flat H*W*C run, whole block steps of
+//     S = C * 2^p elements, so every thread owns fixed channels. The first
+//     `resident` steps of its share go to shared memory as bulk copies
+//     (cp.async.bulk on an mbarrier: the copy engine keeps them all in
+//     flight); the rest are read from global memory meanwhile, and read
+//     again for the output, mostly from the 50 MB L2 (the geometry keeps
+//     a block's shared memory to a quarter of the SM's, so that the
+//     batch's clusters are all on the card at once). Each block sums x and
+//     x^2 per channel in float32 and folds its threads in a fixed order;
+//     after a cluster barrier every block reads all K blocks' per-channel
+//     partials through distributed shared memory in rank order, so all K
+//     form the same group statistics; then each applies the chain to its
+//     share with 16-byte stores.
+//   three passes (gn_stats, gn_finalize, gn_apply) for larger batches (the
+//     CondUNet's 128^2 chains at batch 16, the RefUNet's 16 x 256^2 x
+//     64/128 float32), where it measured faster than the cluster regime,
+//     whose second read of x there misses L2: it reads x twice from HBM.
+//
+// Deterministic in both: fixed reduction orders and no float atomics, so a
+// rerun gives the same bits (the port's bit-exact resume and the
+// graph-equals-eager checks rest on it). Statistics: E[x^2] - E[x]^2
+// clamped at 0.
+//
+// Two numerics modes, chosen by the caller:
+//   policy = 1, the CondUNet's chain as PyTorch's eager ops compute it
+//     (ops/fused_norm.py::gn_film_silu_policy_plain): (x - mean) * (rsqrt(var
+//     + eps) * gamma) + beta as separate float32 operations (no FMA
+//     contraction), rounded to the norm dtype TN; FiLM in TN as h * (1 +
+//     scale) + shift with a rounding after 1 + scale, the product and the
+//     shift; SiLU computed in float32 as v / (1 + expf(-v)) and rounded to
+//     TN (for a bfloat16 TN looked up in a table of all 65536 values, made
+//     by the same code). Only the statistics' summation order differs from
+//     the plain chain.
+//   policy = 0, the RefUNet's contract (gn_silu_plain): GroupNorm affine and
+//     FiLM folded into one float32 multiplier and offset per (sample,
+//     channel), one FMA, SiLU with __expf in float32, one cast on the store.
+//     Numerics follow the plain reference (_xla_gn_silu), not two quirks of
+//     the TPU kernel: the variance is clamped at 0, and the FMA and the SiLU
+//     run in float32 whatever the storage dtype.
+//
+// Loads and stores are 16 bytes along the flat axis (VEC = 4 float32 or 8
+// bfloat16) when H*W*C and the addresses allow, else scalar.
 
-#include <cuda_runtime.h>
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
+
+constexpr int kMaxSmem = 232448;          // dynamic shared memory per block
+constexpr int kStreamU = 4;   // vectors a thread loads before it uses them
+constexpr int kClusterThreads = 256;      // at most, per cluster block
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -55,7 +81,11 @@ template <> __device__ __forceinline__ float from_f<float>(float v) {
 }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
     float v) {
-  return __float2bfloat16(v);
+  return __float2bfloat16_rn(v);
+}
+// v rounded to TN (round to nearest even) and back to float
+template <typename TN> __device__ __forceinline__ float rnd(float v) {
+  return to_f(from_f<TN>(v));
 }
 
 template <typename T, int VEC>
@@ -63,73 +93,512 @@ struct alignas(sizeof(T) * VEC) Pack {
   T v[VEC];
 };
 
+struct Params {
+  const void* x;
+  void* y;
+  const float* gamma;
+  const float* beta;
+  const float* scale;          // null: no FiLM
+  const float* shift;
+  long long film_ld;           // elements between samples of scale / shift
+  long long hw;
+  int C, G, policy;
+  float inv_count, eps;
+};
+
+// The chain's inputs for one (sample, channel), read before the
+// statistics are known: gamma, beta and the FiLM operands (policy mode: 1 +
+// scale and shift already rounded to TN; folded mode: as given).
+struct ChanIn {
+  float gamma, beta, scale, shift;
+};
+
+// The chain's constants for one (sample, channel).
+struct Chan {
+  float mean, mul, add, fs, sh;
+};
+
+template <typename TN>
+__device__ __forceinline__ ChanIn load_chan_in(const Params& p, int b,
+                                               int c) {
+  ChanIn in{p.gamma[c], p.beta[c], 1.f, 0.f};
+  if (p.scale != nullptr) {
+    const long long f = (long long)b * p.film_ld + c;
+    in.scale = p.scale[f];
+    in.shift = p.shift[f];
+    if (p.policy) {
+      in.scale = rnd<TN>(__fadd_rn(1.f, rnd<TN>(in.scale)));
+      in.shift = rnd<TN>(in.shift);
+    }
+  }
+  return in;
+}
+
+// Constants of one channel from its group's float32 sums s and q.
+__device__ __forceinline__ Chan make_chan(const Params& p, float s, float q,
+                                          const ChanIn& in) {
+  Chan ch;
+  const float mean = s * p.inv_count;
+  if (p.policy) {
+    const float var = fmaxf(
+        __fsub_rn(__fmul_rn(q, p.inv_count), __fmul_rn(mean, mean)), 0.f);
+    ch.mean = mean;
+    ch.mul = __fmul_rn(rsqrtf(__fadd_rn(var, p.eps)), in.gamma);
+    ch.add = in.beta;
+    ch.fs = in.scale;
+    ch.sh = in.shift;
+  } else {
+    const float var = fmaxf(q * p.inv_count - mean * mean, 0.f);
+    float m = rsqrtf(var + p.eps) * in.gamma;
+    float o = in.beta - mean * m;
+    if (p.scale != nullptr) {
+      const float fs = 1.f + in.scale;
+      m *= fs;
+      o = o * fs + in.shift;
+    }
+    ch.mean = 0.f;
+    ch.mul = m;
+    ch.add = o;
+    ch.fs = 1.f;
+    ch.sh = 0.f;
+  }
+  return ch;
+}
+
+// The policy's SiLU of one value in float32, as torch's silu computes it
+// for a bf16 or float32 tensor: v / (1 + expf(-v)), IEEE division.
+__device__ __forceinline__ float silu_f32(float v) {
+  return __fdiv_rn(v, __fadd_rn(1.f, expf(-v)));
+}
+
+// The policy's SiLU of every bfloat16 value, rounded to bfloat16 (indexed
+// by the bit pattern): filled once per device by gn_fill_silu_table with
+// silu_f32, so a lookup gives the same bits as computing it. It replaces
+// the exponential and the division, whose dependent latency bounded the
+// kernel, by one load from a table whose used part stays in L1.
+__device__ __nv_bfloat16 gn_silu_bf16[65536];
+
+__global__ void gn_fill_silu_table() {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < 65536)
+    gn_silu_bf16[i] = __float2bfloat16_rn(
+        silu_f32(__bfloat162float(__ushort_as_bfloat16((unsigned short)i))));
+}
+
+// One element of the chain, x in float32 -> y in TN.
+template <typename TN, bool POLICY, bool FILM>
+__device__ __forceinline__ TN chain(float x, const Chan& ch) {
+  if constexpr (POLICY) {
+    float h = __fadd_rn(__fmul_rn(__fsub_rn(x, ch.mean), ch.mul), ch.add);
+    if constexpr (FILM) {
+      h = rnd<TN>(__fmul_rn(rnd<TN>(h), ch.fs));
+      h = __fadd_rn(h, ch.sh);
+    }
+    if constexpr (sizeof(TN) == 2) {
+      const unsigned short i = __bfloat16_as_ushort(from_f<TN>(h));
+      return __ldg(&gn_silu_bf16[i]);
+    } else {
+      return silu_f32(h);
+    }
+  } else {
+    const float v = fmaf(x, ch.mul, ch.add);
+    return from_f<TN>(v / (1.f + __expf(-v)));
+  }
+}
+
+template <typename T, typename TN, int VEC, bool POLICY, bool FILM>
+__device__ __forceinline__ void apply_pack(const Pack<T, VEC>& in, TN* out,
+                                           const Chan* ch) {
+  Pack<TN, VEC> r;
+#pragma unroll
+  for (int j = 0; j < VEC; ++j)
+    r.v[j] = chain<TN, POLICY, FILM>(to_f(in.v[j]), ch[j]);
+  *reinterpret_cast<Pack<TN, VEC>*>(out) = r;
+}
+
+// Steps it0, it0 + 1, ... below it1 of this thread's slots, read from xg
+// (global memory) U at a time, loads first: fn(pack, element index).
+template <typename T, int VEC, int U, typename Fn>
+__device__ __forceinline__ void stream_steps(const T* xg, long long base,
+                                             long long n, int S, int it0,
+                                             int it1, Fn&& fn) {
+  for (int it = it0; it < it1; it += U) {
+    Pack<T, VEC> v[U];
+    bool live[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long e = base + (long long)(it + u) * S;
+      live[u] = it + u < it1 && e < n;
+      if (live[u]) v[u] = *reinterpret_cast<const Pack<T, VEC>*>(xg + e);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (live[u]) fn(v[u], base + (long long)(it + u) * S);
+  }
+}
+
+// The chain over a block's share: the streamed steps from global memory
+// (xg), then the resident steps from shared memory (xs).
+template <typename T, typename TN, int VEC, bool POLICY, bool FILM, int U>
+__device__ __forceinline__ void apply_share(const T* xg, const T* xs, TN* y,
+                                            const Chan* ch, long long base,
+                                            long long n, int S, int iters,
+                                            int resident) {
+  stream_steps<T, VEC, U>(xg, base, n, S, resident, iters,
+                          [&](const Pack<T, VEC>& v, long long e) {
+                            apply_pack<T, TN, VEC, POLICY, FILM>(v, y + e,
+                                                                 ch);
+                          });
+  const int slot = threadIdx.x * VEC;
+  for (int it = 0; it < resident; ++it) {
+    const long long e = base + (long long)it * S;
+    if (e < n)
+      apply_pack<T, TN, VEC, POLICY, FILM>(
+          *reinterpret_cast<const Pack<T, VEC>*>(xs + it * S + slot), y + e,
+          ch);
+  }
+}
+
+// apply_share for the launch's mode (policy or folded, FiLM or not)
+template <typename T, typename TN, int VEC>
+__device__ __forceinline__ void apply_share_by_mode(
+    const Params& p, const T* xg, const T* xs, TN* y, const Chan* ch,
+    long long base, long long n, int S, int iters, int resident) {
+#define SUPERDIFF_APPLY(POLICY, FILM)                                    \
+  apply_share<T, TN, VEC, POLICY, FILM, kStreamU>(xg, xs, y, ch, base, n, \
+                                                  S, iters, resident)
+  if (!p.policy)
+    SUPERDIFF_APPLY(false, false);      // FiLM is folded into the constants
+  else if (p.scale != nullptr)
+    SUPERDIFF_APPLY(true, true);
+  else
+    SUPERDIFF_APPLY(true, false);
+#undef SUPERDIFF_APPLY
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ void accumulate(const Pack<T, VEC>& in, float* s,
+                                           float* q) {
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    const float v = to_f(in.v[j]);
+    s[j] += v;
+    q[j] = fmaf(v, v, q[j]);
+  }
+}
+
+// Per-thread float32 sums of S = blockDim.x * VEC slots -> per-channel
+// sums in red[0, C) and red[S, S + C). Slot k holds channel k % C (S / C
+// is a power of two): halve the slots while more than 16 share a channel,
+// then one thread per channel (and per sums / squares) adds its column of
+// slots in slot order.
+template <int VEC>
+__device__ __forceinline__ void fold_columns(float* red, const float* s,
+                                             const float* q, int C) {
+  const int S = blockDim.x * VEC;
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    red[threadIdx.x * VEC + j] = s[j];
+    red[S + threadIdx.x * VEC + j] = q[j];
+  }
+  __syncthreads();
+  int width = S;
+  for (; width / C > 16; width >>= 1) {
+    const int half = width >> 1;
+    for (int k = threadIdx.x; k < half; k += blockDim.x) {
+      red[k] += red[k + half];
+      red[S + k] += red[S + k + half];
+    }
+    __syncthreads();
+  }
+  for (int i = threadIdx.x; i < 2 * C; i += blockDim.x) {
+    float* col = red + (i < C ? i : S + i - C);   // only this thread's column
+    float t = 0.f;
+    for (int m = 0; m < width; m += C) t += col[m];
+    col[0] = t;
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+#ifdef SUPERDIFF_GN_TRACE
+// Timeline of a cluster launch, for tuning builds only: per block (the
+// first 1024), thread 0's globaltimer at its start and end (ns) and its
+// clock64 at each phase boundary between.
+__device__ long long gn_trace[1024][10];
+#define GN_CLOCK(i)                                                        \
+  if (threadIdx.x == 0 && blockIdx.x < 1024) gn_trace[blockIdx.x][i] = clock64();
+#define GN_GLOBAL(i)                                                       \
+  if (threadIdx.x == 0 && blockIdx.x < 1024) {                             \
+    long long t;                                                           \
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));                  \
+    gn_trace[blockIdx.x][i] = t;                                           \
+  }
+#else
+#define GN_CLOCK(i)
+#define GN_GLOBAL(i)
+#endif
+
+// Bytes of shared memory before the resident x: the fold (2 S), the
+// cluster's per-channel totals (2 C) and the group sums (2 G), in floats,
+// rounded up to 16 bytes, then 16 bytes for the copy's mbarrier. The Python
+// geometry mirrors it.
+__host__ __device__ __forceinline__ int cluster_fixed_bytes(int S, int C,
+                                                            int G) {
+  return ((2 * S + 2 * C + 2 * G) * 4 + 15) / 16 * 16 + 16;
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(bar))
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// One bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) from global to this block's shared memory, completing on bar.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(
+          (uint32_t)__cvta_generic_to_shared(dst)),
+      "l"(src), "r"(bytes), "r"((uint32_t)__cvta_generic_to_shared(bar))
+      : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"((uint32_t)__cvta_generic_to_shared(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nGN_WAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra GN_WAIT_%=;\n}\n" ::"r"(
+          (uint32_t)__cvta_generic_to_shared(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+
+// One cluster of K blocks per sample (the regime the module header
+// describes). iters: block steps per block; resident: how many of them sit
+// in shared memory (the rest stream from global memory, twice).
+template <typename T, typename TN, int VEC>
+__global__ void __launch_bounds__(kClusterThreads, 2)
+    gn_cluster(Params p, int iters, int resident) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int K = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int b = blockIdx.x / K;
+  const int S = blockDim.x * VEC, C = p.C, G = p.G, gw = C / G;
+  const long long n = p.hw * C;
+  float* red = reinterpret_cast<float*>(smem);
+  float* tot = red + 2 * S;
+  float* gsum = tot + 2 * C;
+  T* xs = reinterpret_cast<T*>(smem + cluster_fixed_bytes(S, C, G));
+  const T* xb = static_cast<const T*>(p.x) + b * n;
+  TN* yb = static_cast<TN*>(p.y) + b * n;
+  const long long base = (long long)rank * iters * S + threadIdx.x * VEC;
+  const int slot = threadIdx.x * VEC;     // this thread's slots in a step
+  GN_GLOBAL(0)
+  GN_CLOCK(1)
+
+  // 1. the resident steps, HBM -> shared: as bulk copies (the copy engine
+  // keeps them all in flight) where they are whole 16-byte vectors, else
+  // (scalar accesses, for ragged shapes) by plain loads
+  uint64_t* bar = reinterpret_cast<uint64_t*>(
+      smem + cluster_fixed_bytes(S, C, G) - 16);
+  const long long r0 = (long long)rank * iters * S;
+  const long long r1 = min(r0 + (long long)resident * S, n);
+  if constexpr (sizeof(T) * VEC == 16) {
+    if (threadIdx.x == 0) {
+      mbar_init(bar);
+      if (r1 > r0) {
+        const long long bytes = (r1 - r0) * (long long)sizeof(T);
+        mbar_expect(bar, (uint32_t)bytes);
+        for (long long off = 0; off < bytes; off += 32768)
+          bulk_copy(reinterpret_cast<unsigned char*>(xs) + off,
+                    reinterpret_cast<const unsigned char*>(xb + r0) + off,
+                    (uint32_t)min(bytes - off, 32768LL), bar);
+      } else {
+        mbar_expect(bar, 0);
+      }
+    }
+  } else {            // each thread copies the slots it reads back
+    for (int it = 0; it < resident; ++it) {
+      const long long e = base + (long long)it * S;
+      if (e < n)
+        *reinterpret_cast<Pack<T, VEC>*>(xs + it * S + slot) =
+            *reinterpret_cast<const Pack<T, VEC>*>(xb + e);
+    }
+  }
+  ChanIn cin[VEC];         // read while the copies land
+#pragma unroll
+  for (int j = 0; j < VEC; ++j)
+    cin[j] = load_chan_in<TN>(p, b, (slot + j) % C);
+  // 2. the sums: streamed steps from global memory while the copies land,
+  // then the resident steps from shared memory
+  float s[VEC], q[VEC];
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) s[j] = q[j] = 0.f;
+  stream_steps<T, VEC, kStreamU>(xb, base, n, S, resident, iters,
+                          [&](const Pack<T, VEC>& v, long long) {
+                            accumulate<T, VEC>(v, s, q);
+                          });
+  GN_CLOCK(2)
+  if constexpr (sizeof(T) * VEC == 16) {
+    __syncthreads();                     // the mbarrier is initialised
+    mbar_wait(bar, 0);
+  }
+  for (int it = 0; it < resident; ++it) {
+    if (base + (long long)it * S < n)
+      accumulate<T, VEC>(
+          *reinterpret_cast<const Pack<T, VEC>*>(xs + it * S + slot), s, q);
+  }
+  GN_CLOCK(3)
+  fold_columns<VEC>(red, s, q, C);
+  GN_CLOCK(4)
+
+  // 3. the cluster's per-channel totals, from every block's partials in
+  // rank order through distributed shared memory (16-byte reads, four
+  // ranks' at a time in flight): the same sums in every block
+  cluster_arrive();
+  cluster_wait();
+  GN_CLOCK(5)
+  if (C % 4 == 0) {
+    for (int c4 = threadIdx.x; c4 < C / 4; c4 += blockDim.x) {
+      float4 ts = make_float4(0.f, 0.f, 0.f, 0.f), tq = ts;
+      for (int k0 = 0; k0 < K; k0 += 4) {
+        float4 vs[4], vq[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (k0 + u < K) {
+            const float* r = cluster.map_shared_rank(red, k0 + u);
+            vs[u] = reinterpret_cast<const float4*>(r)[c4];
+            vq[u] = reinterpret_cast<const float4*>(r + S)[c4];
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (k0 + u < K) {
+            ts.x += vs[u].x; ts.y += vs[u].y; ts.z += vs[u].z;
+            ts.w += vs[u].w;
+            tq.x += vq[u].x; tq.y += vq[u].y; tq.z += vq[u].z;
+            tq.w += vq[u].w;
+          }
+        }
+      }
+      reinterpret_cast<float4*>(tot)[c4] = ts;
+      reinterpret_cast<float4*>(tot + C)[c4] = tq;
+    }
+  } else {
+    for (int c = threadIdx.x; c < C; c += blockDim.x) {
+      float ts = 0.f, tq = 0.f;
+      for (int k = 0; k < K; ++k) {
+        const float* r = cluster.map_shared_rank(red, k);
+        ts += r[c];
+        tq += r[S + c];
+      }
+      tot[c] = ts;
+      tot[C + c] = tq;
+    }
+  }
+  cluster_arrive();        // done reading the other blocks' shared memory
+  GN_CLOCK(6)
+  __syncthreads();
+  for (int g = threadIdx.x; g < G; g += blockDim.x) {
+    float gs = 0.f, gq = 0.f;
+    for (int k = 0; k < gw; ++k) {
+      gs += tot[g * gw + k];
+      gq += tot[C + g * gw + k];
+    }
+    gsum[g] = gs;
+    gsum[G + g] = gq;
+  }
+  __syncthreads();
+  Chan ch[VEC];
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    const int g = ((slot + j) % C) / gw;
+    ch[j] = make_chan(p, gsum[g], gsum[G + g], cin[j]);
+  }
+
+  GN_CLOCK(7)
+  // 4. the chain: streamed steps first (their second read, from L2 while
+  // it still holds them), then the resident steps from shared memory
+  apply_share_by_mode<T, TN, VEC>(p, xb, xs, yb, ch, base, n, S, iters,
+                                  resident);
+  GN_CLOCK(8)
+  cluster_wait();          // no block leaves while another reads its partials
+  GN_GLOBAL(9)
+}
+
+// --- the three-pass regime -------------------------------------------------
+
+// grid (tiles, B): per-(sample, tile, channel) partial sums
 template <typename T, int VEC>
 __global__ void gn_stats(const T* __restrict__ x, float* __restrict__ psum,
                          float* __restrict__ psq, long long n, int C,
                          int iters) {
-  extern __shared__ float smem[];
-  const int S = blockDim.x * VEC;          // elements per block iteration
-  float* ssum = smem;
-  float* ssq = smem + S;
+  extern __shared__ float red[];
+  const int S = blockDim.x * VEC;
   const int b = blockIdx.y, tile = blockIdx.x, tiles = gridDim.x;
   const T* xb = x + (long long)b * n;
   const long long base = (long long)tile * iters * S + threadIdx.x * VEC;
-
   float s[VEC], q[VEC];
 #pragma unroll
   for (int j = 0; j < VEC; ++j) s[j] = q[j] = 0.f;
-  for (int it = 0; it < iters; ++it) {
-    const long long e = base + (long long)it * S;
-    if (e < n) {                           // n % VEC == 0: whole vectors
-      const Pack<T, VEC> p = *reinterpret_cast<const Pack<T, VEC>*>(xb + e);
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) {
-        const float v = to_f(p.v[j]);
-        s[j] += v;
-        q[j] = fmaf(v, v, q[j]);
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < VEC; ++j) {
-    ssum[threadIdx.x * VEC + j] = s[j];
-    ssq[threadIdx.x * VEC + j] = q[j];
-  }
-  __syncthreads();
-  // slot k holds channel k % C; k and k + half share it while half % C == 0
-  for (int half = S >> 1; half >= C; half >>= 1) {
-    for (int k = threadIdx.x; k < half; k += blockDim.x) {
-      ssum[k] += ssum[k + half];
-      ssq[k] += ssq[k + half];
-    }
-    __syncthreads();
-  }
+  stream_steps<T, VEC, kStreamU>(xb, base, n, S, 0, iters,  // whole vectors
+                          [&](const Pack<T, VEC>& v, long long) {
+                            accumulate<T, VEC>(v, s, q);
+                          });
+  fold_columns<VEC>(red, s, q, C);
   float* osum = psum + ((long long)b * tiles + tile) * C;
   float* osq = psq + ((long long)b * tiles + tile) * C;
   for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    osum[c] = ssum[c];
-    osq[c] = ssq[c];
+    osum[c] = red[c];
+    osq[c] = red[S + c];
   }
 }
 
-__global__ void gn_finalize(const float* __restrict__ psum,
+// grid (B): the partials summed over tiles (P = blockDim / C threads per
+// channel, each over every P-th tile, then the P slices in order), then
+// over each group's channels, in a fixed order; the chain's constants per
+// (sample, channel)
+template <typename TN>
+__global__ void gn_finalize(Params p, const float* __restrict__ psum,
                             const float* __restrict__ psq,
-                            const float* __restrict__ gamma,
-                            const float* __restrict__ beta,
-                            const float* __restrict__ scale,
-                            const float* __restrict__ shift,
-                            float* __restrict__ mul, float* __restrict__ off,
-                            int C, int G, int tiles, float inv_count,
-                            float eps) {
-  extern __shared__ float smem[];
-  float* csum = smem;
-  float* csq = smem + C;
-  const int b = blockIdx.x, gw = C / G;
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+                            Chan* __restrict__ chan, int tiles) {
+  extern __shared__ float part[];   // 2 P C slice sums, then 2 C totals
+  const int C = p.C, gw = C / p.G, b = blockIdx.x;
+  const int P = max(1, (int)blockDim.x / C);
+  float* csum = P > 1 ? part + 2 * P * C : part;   // in place for P = 1
+  float* csq = csum + C;
+  for (int i = threadIdx.x; i < P * C; i += blockDim.x) {
+    const int c = i % C;
     float s = 0.f, q = 0.f;
-    for (int t = 0; t < tiles; ++t) {
+    for (int t = i / C; t < tiles; t += P) {
       s += psum[((long long)b * tiles + t) * C + c];
       q += psq[((long long)b * tiles + t) * C + c];
+    }
+    part[i] = s;
+    part[P * C + i] = q;
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    float s = 0.f, q = 0.f;
+    for (int j = 0; j < P; ++j) {
+      s += part[j * C + c];
+      q += part[P * C + j * C + c];
     }
     csum[c] = s;
     csq[c] = q;
@@ -142,110 +611,208 @@ __global__ void gn_finalize(const float* __restrict__ psum,
       s += csum[c0 + k];
       q += csq[c0 + k];
     }
-    const float mean = s * inv_count;
-    const float var = fmaxf(q * inv_count - mean * mean, 0.f);
-    float m = rsqrtf(var + eps) * gamma[c];
-    float o = beta[c] - mean * m;
-    if (scale != nullptr) {
-      const float fs = 1.f + scale[(long long)b * C + c];
-      m *= fs;
-      o = o * fs + shift[(long long)b * C + c];
-    }
-    mul[(long long)b * C + c] = m;
-    off[(long long)b * C + c] = o;
+    chan[(long long)b * C + c] =
+        make_chan(p, s, q, load_chan_in<TN>(p, b, c));
   }
 }
 
-template <typename T, int VEC>
-__global__ void gn_apply(const T* __restrict__ x, T* __restrict__ y,
-                         const float* __restrict__ mul,
-                         const float* __restrict__ off, long long n, int C,
-                         int iters) {
-  const int S = blockDim.x * VEC;
+// the same grid as gn_stats: the chain, one cast on the store
+template <typename T, typename TN, int VEC, bool POLICY>
+__global__ void gn_apply(Params p, const Chan* __restrict__ chan, int iters) {
+  // one kernel per mode, so that the folded mode keeps two constants per
+  // channel in registers, not five
+  const int S = blockDim.x * VEC, C = p.C;
   const int b = blockIdx.y, tile = blockIdx.x;
-  const T* xb = x + (long long)b * n;
-  T* yb = y + (long long)b * n;
+  const long long n = p.hw * C;
+  const T* xb = static_cast<const T*>(p.x) + (long long)b * n;
+  TN* yb = static_cast<TN*>(p.y) + (long long)b * n;
   const long long base = (long long)tile * iters * S + threadIdx.x * VEC;
-  float m[VEC], o[VEC];
+  Chan ch[VEC];
 #pragma unroll
-  for (int j = 0; j < VEC; ++j) {
-    const int c = (threadIdx.x * VEC + j) % C;
-    m[j] = mul[(long long)b * C + c];
-    o[j] = off[(long long)b * C + c];
-  }
-  for (int it = 0; it < iters; ++it) {
-    const long long e = base + (long long)it * S;
-    if (e < n) {
-      const Pack<T, VEC> p = *reinterpret_cast<const Pack<T, VEC>*>(xb + e);
-      Pack<T, VEC> r;
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) {
-        const float v = fmaf(to_f(p.v[j]), m[j], o[j]);
-        r.v[j] = from_f<T>(v / (1.f + __expf(-v)));
-      }
-      *reinterpret_cast<Pack<T, VEC>*>(yb + e) = r;
-    }
+  for (int j = 0; j < VEC; ++j)
+    ch[j] = chan[(long long)b * C + (threadIdx.x * VEC + j) % C];
+  if constexpr (POLICY) {
+    if (p.scale != nullptr)
+      apply_share<T, TN, VEC, true, true, kStreamU>(xb, xb, yb, ch, base, n,
+                                                   S, iters, 0);
+    else
+      apply_share<T, TN, VEC, true, false, kStreamU>(xb, xb, yb, ch, base, n,
+                                                    S, iters, 0);
+  } else {    // FiLM is folded into the constants
+    apply_share<T, TN, VEC, false, false, kStreamU>(xb, xb, yb, ch, base, n,
+                                                   S, iters, 0);
   }
 }
 
-template <typename T, int VEC>
-cudaError_t launch(const void* x, void* y, const float* gamma,
-                   const float* beta, const float* scale, const float* shift,
-                   float* work, int B, long long hw, int C, int G,
-                   int threads, int iters, int tiles, float eps,
-                   cudaStream_t st) {
-  const long long n = hw * C;
-  const int S = threads * VEC;
+template <typename T, typename TN, int VEC>
+cudaError_t launch_three_pass(const Params& p, float* work, int B,
+                              int threads, int iters, int tiles,
+                              cudaStream_t st) {
+  const long long n = p.hw * p.C;
+  const int S = threads * VEC, C = p.C;
   if (n % VEC || S % C || (S / C) & (S / C - 1) || threads > 1024 ||
       (long long)tiles * iters * S < n || S > 4096 || C > 4096)
     return cudaErrorInvalidValue;
   float* psum = work;
   float* psq = psum + (long long)B * tiles * C;
-  float* mul = psq + (long long)B * tiles * C;
-  float* off = mul + (long long)B * C;
+  Chan* chan = reinterpret_cast<Chan*>(psq + (long long)B * tiles * C);
   const dim3 grid(tiles, B);
   gn_stats<T, VEC><<<grid, threads, 2 * S * sizeof(float), st>>>(
-      static_cast<const T*>(x), psum, psq, n, C, iters);
+      static_cast<const T*>(p.x), psum, psq, n, C, iters);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int fthreads = C < 256 ? ((C + 31) / 32) * 32 : 256;
-  gn_finalize<<<B, fthreads, 2 * C * sizeof(float), st>>>(
-      psum, psq, gamma, beta, scale, shift, mul, off, C, G, tiles,
-      1.f / (float)(hw * (C / G)), eps);
+  const int P = C < 256 ? 256 / C : 1;      // as gn_finalize computes it
+  gn_finalize<TN><<<B, 256, (P > 1 ? 2 * P * C + 2 * C : 2 * C) *
+                                sizeof(float), st>>>(p, psum, psq, chan,
+                                                     tiles);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  gn_apply<T, VEC><<<grid, threads, 0, st>>>(
-      static_cast<const T*>(x), static_cast<T*>(y), mul, off, n, C, iters);
+  if (p.policy)
+    gn_apply<T, TN, VEC, true><<<grid, threads, 0, st>>>(p, chan, iters);
+  else
+    gn_apply<T, TN, VEC, false><<<grid, threads, 0, st>>>(p, chan, iters);
   return cudaGetLastError();
+}
+
+template <typename T, typename TN, int VEC>
+cudaError_t launch_cluster(const Params& p, int B, int threads, int cluster,
+                           int iters, int resident, int smem,
+                           cudaStream_t st) {
+  const int S = threads * VEC, C = p.C;
+  if (S % C || (S / C) & (S / C - 1) || threads > kClusterThreads ||
+      cluster < 1 || cluster > 16 || resident < 0 || resident > iters ||
+      (long long)cluster * iters * S < p.hw * C ||
+      smem != cluster_fixed_bytes(S, C, p.G) + resident * S * (int)sizeof(T) ||
+      smem > kMaxSmem)
+    return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * cluster);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, gn_cluster<T, TN, VEC>, p, iters, resident);
+}
+
+template <typename T, typename TN, int VEC>
+cudaError_t set_cluster_attributes() {
+  cudaError_t e = cudaFuncSetAttribute(
+      gn_cluster<T, TN, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kMaxSmem);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(gn_cluster<T, TN, VEC>,
+                              cudaFuncAttributeNonPortableClusterSizeAllowed,
+                              1);
 }
 
 }  // namespace
 
-// x, y: (B, H*W, C) contiguous, dtype 0 = bfloat16, 1 = float32. gamma,
-// beta: (C,) float32; scale, shift: (B, C) float32, or both null (no FiLM).
-// work: float32 scratch of 2*B*tiles*C + 2*B*C. vec, threads, iters and
-// tiles are the launch geometry chosen by the Python wrapper
-// (ops/fused_norm.py::_geometry). Returns a CUDA error code.
+// Every (input dtype, output dtype, VEC) the library holds: dtype 0 =
+// bfloat16, 1 = float32; VEC elements per access (16 bytes, or scalars).
+#define SUPERDIFF_GN_CASES(X)                                             \
+  X(__nv_bfloat16, 0, __nv_bfloat16, 0, 8)                                \
+  X(__nv_bfloat16, 0, __nv_bfloat16, 0, 1)                                \
+  X(__nv_bfloat16, 0, float, 1, 8)                                        \
+  X(__nv_bfloat16, 0, float, 1, 1)                                        \
+  X(float, 1, float, 1, 4)                                                \
+  X(float, 1, float, 1, 1)                                                \
+  X(float, 1, __nv_bfloat16, 0, 4)                                        \
+  X(float, 1, __nv_bfloat16, 0, 1)
+
+// Once per device, before the first launch: lets every cluster kernel use
+// up to 227 KB of dynamic shared memory and clusters of 16 blocks, and
+// fills the bfloat16 SiLU table.
+extern "C" int superdiff_gn_init() {
+#define SUPERDIFF_INIT(T, DT, TN, DN, V)                                  \
+  if (cudaError_t e = set_cluster_attributes<T, TN, V>(); e != cudaSuccess) \
+    return (int)e;
+  SUPERDIFF_GN_CASES(SUPERDIFF_INIT)
+#undef SUPERDIFF_INIT
+  // the SiLU table, on a stream of its own (the caller's may be capturing)
+  cudaStream_t st;
+  cudaError_t e = cudaStreamCreateWithFlags(&st, cudaStreamNonBlocking);
+  if (e != cudaSuccess) return (int)e;
+  gn_fill_silu_table<<<256, 256, 0, st>>>();
+  e = cudaGetLastError();
+  const cudaError_t e2 = cudaStreamSynchronize(st);
+  cudaStreamDestroy(st);
+  return (int)(e != cudaSuccess ? e : e2);
+}
+
+// x: (B, H*W, C) contiguous in in_dtype; y: the same shape in out_dtype.
+// gamma, beta: (C,) float32; scale, shift: float32 with row stride film_ld
+// (FiLM of sample b, channel c at [b * film_ld + c]), or both null.
+// policy: 1 the CondUNet's rounding sequence, 0 the folded float32 chain.
+// regime: 0 three passes (work: float32 scratch of 2*B*tiles*C + 5*B*C;
+// vec, threads, iters, tiles), 1 cluster (work unused; vec, threads,
+// cluster, iters, resident, smem). The geometry is chosen by the Python
+// wrapper (ops/fused_norm.py::launch_geometry). Returns a CUDA error code.
 extern "C" int superdiff_gn_silu(const void* x, void* y, const float* gamma,
                                  const float* beta, const float* scale,
-                                 const float* shift, float* work, int B,
-                                 long long hw, int C, int G, int dtype,
-                                 int vec, int threads, int iters, int tiles,
-                                 float eps, void* stream) {
+                                 const float* shift, long long film_ld,
+                                 float* work, int B, long long hw, int C,
+                                 int G, int in_dtype, int out_dtype,
+                                 int policy, int regime, int vec, int threads,
+                                 int cluster, int iters, int resident,
+                                 int tiles, int smem, float eps,
+                                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (G <= 0 || C % G || (scale == nullptr) != (shift == nullptr))
+  if (G <= 0 || C % G || (scale == nullptr) != (shift == nullptr) ||
+      (policy == 0 && in_dtype != out_dtype))
     return (int)cudaErrorInvalidValue;
-#define SUPERDIFF_CASE(T, V)                                                \
-  if (vec == V) return (int)launch<T, V>(x, y, gamma, beta, scale, shift, \
-                                         work, B, hw, C, G, threads,      \
-                                         iters, tiles, eps, st);
-  if (dtype == 0) {
-    SUPERDIFF_CASE(__nv_bfloat16, 8)
-    SUPERDIFF_CASE(__nv_bfloat16, 1)
-  } else if (dtype == 1) {
-    SUPERDIFF_CASE(float, 4)
-    SUPERDIFF_CASE(float, 1)
-  }
-#undef SUPERDIFF_CASE
+  Params p{x, y, gamma, beta, scale, shift, film_ld, hw, C, G, policy,
+           1.f / (float)(hw * (C / G)), eps};
+#define SUPERDIFF_CLUSTER(T, DT, TN, DN, V)                                \
+  if (regime == 1 && in_dtype == DT && out_dtype == DN && vec == V)        \
+    return (int)launch_cluster<T, TN, V>(p, B, threads, cluster, iters,    \
+                                         resident, smem, st);
+#define SUPERDIFF_THREE_PASS(T, DT, TN, DN, V)                             \
+  if (regime == 0 && in_dtype == DT && out_dtype == DN && vec == V)        \
+    return (int)launch_three_pass<T, TN, V>(p, work, B, threads, iters,    \
+                                            tiles, st);
+  SUPERDIFF_GN_CASES(SUPERDIFF_CLUSTER)
+  SUPERDIFF_GN_CASES(SUPERDIFF_THREE_PASS)
+#undef SUPERDIFF_CLUSTER
+#undef SUPERDIFF_THREE_PASS
+  return (int)cudaErrorInvalidValue;
+}
+
+#ifdef SUPERDIFF_GN_TRACE
+// The timeline of the last cluster launch's first `blocks` blocks, 10
+// values each, into out.
+extern "C" int superdiff_gn_trace(long long* out, int blocks) {
+  return (int)cudaMemcpyFromSymbol(out, gn_trace,
+                                   sizeof(long long) * 10 * blocks);
+}
+#endif
+
+// How many clusters of one cluster-regime geometry the card holds at once
+// (cudaOccupancyMaxActiveClusters), into *out. Returns a CUDA error code.
+extern "C" int superdiff_gn_max_clusters(int in_dtype, int out_dtype,
+                                         int vec, int threads, int cluster,
+                                         int smem, int* out) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+#define SUPERDIFF_OCC(T, DT, TN, DN, V)                                   \
+  if (in_dtype == DT && out_dtype == DN && vec == V)                      \
+    return (int)cudaOccupancyMaxActiveClusters(out, gn_cluster<T, TN, V>, \
+                                               &cfg);
+  SUPERDIFF_GN_CASES(SUPERDIFF_OCC)
+#undef SUPERDIFF_OCC
   return (int)cudaErrorInvalidValue;
 }

@@ -10,9 +10,12 @@ linear ``(out, in)``); ``compat/flax_params.py`` converts Flax trees.
 Numerics follow Flax: each layer casts its input and weights to the
 layer's ``compute_dtype``; GroupNorm reduces ``E[x]`` and ``E[x^2]`` in
 float32 (variance ``E[x^2] - E[x]^2`` clipped at 0, eps 1e-5) and returns
-``norm_dtype``; FiLM is applied in ``norm_dtype``. ``GroupNormSiLU`` and
-``NormAct`` compute GroupNorm -> FiLM -> SiLU as one function in float32
-(``GroupNormSiLU``: kernel B4 on the card).
+``norm_dtype``; FiLM is applied in ``norm_dtype``. The ResBlock's and the
+CondUNet's GroupNorm -> (FiLM) -> SiLU chains go through
+``GroupNorm.film_silu`` (kernel B4 on the card when no gradient is wanted,
+with the same rounding points). ``GroupNormSiLU`` and ``NormAct`` compute
+GroupNorm -> FiLM -> SiLU as one function in float32 (``GroupNormSiLU``:
+kernel B4 on the card).
 """
 
 from __future__ import annotations
@@ -89,15 +92,23 @@ class GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels, device=device))
 
     def forward(self, x: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
-        B, C, G = x.shape[0], x.shape[-1], self.num_groups
-        xg = x.float().reshape(B, -1, G, C // G)
-        mu = xg.mean(dim=(1, 3), keepdim=True)
-        mu2 = (xg * xg).mean(dim=(1, 3), keepdim=True)
-        var = torch.clamp(mu2 - mu * mu, min=0.0)
-        mul = torch.rsqrt(var + self.eps) * self.weight.float().view(
-            1, 1, G, C // G)
-        y = (xg - mu) * mul + self.bias.float().view(1, 1, G, C // G)
-        return y.reshape(x.shape).to(out_dtype)
+        from superdiff_torch.ops.fused_norm import group_norm_plain
+
+        return group_norm_plain(x, self.weight, self.bias, self.num_groups,
+                                self.eps, out_dtype)
+
+    def film_silu(self, x: torch.Tensor, norm_dtype: torch.dtype,
+                  scale: Optional[torch.Tensor] = None,
+                  shift: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """This norm, then ``h * (1 + scale) + shift`` and SiLU, all in
+        ``norm_dtype``:
+        :func:`~superdiff_torch.ops.fused_norm.gn_film_silu_policy` (kernel
+        B4 on the card when no gradient is wanted)."""
+        from superdiff_torch.ops.fused_norm import gn_film_silu_policy
+
+        return gn_film_silu_policy(x, self.weight, self.bias,
+                                   self.num_groups, norm_dtype, scale, shift,
+                                   self.eps)
 
 
 class GroupNormSiLU(nn.Module):
@@ -226,14 +237,11 @@ class ResBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
         cd, nd = self.compute_dtype, self.norm_dtype
-        h = F.silu(self.norm_0(x, nd))
+        h = self.norm_0.film_silu(x, nd)
         h = conv_nhwc(self.conv_0, h, cd)
         cond = linear(self.emb_proj, F.silu(emb.float()), torch.float32)
         scale, shift = cond.chunk(2, dim=-1)                 # (B, C) each
-        h = self.norm_1(h, nd)
-        h = (h * (1.0 + scale.to(nd)[:, None, None, :])
-             + shift.to(nd)[:, None, None, :])
-        h = F.silu(h).to(cd)
+        h = self.norm_1.film_silu(h, nd, scale, shift).to(cd)
         if self.dropout > 0.0:
             h = F.dropout(h, self.dropout, training=self.training)
         h = conv_nhwc(self.conv_1, h, cd)

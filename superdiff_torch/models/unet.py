@@ -230,7 +230,7 @@ class CondUNet(nn.Module):
                 h = getattr(self, name)(h)
         assert not skips
 
-        h = torch.nn.functional.silu(self.out_norm(h, nd))
+        h = self.out_norm.film_silu(h, nd)
         h = conv_nhwc(self.out_conv, h, torch.float32)
         if p > 1:
             h = depth_to_space(h, p)

@@ -249,6 +249,8 @@ def test_no_fallback_when_the_build_fails(cuda, monkeypatch):
     x, gamma, beta, _, _ = _gn_inputs(1, 4, 4, 8, False, torch.float32, cuda)
     with pytest.raises(RuntimeError, match="nvcc failed"):
         fn.fused_groupnorm_silu(x, gamma, beta, 4)
+    with torch.no_grad(), pytest.raises(RuntimeError, match="nvcc failed"):
+        fn.gn_film_silu_policy(x, gamma, beta, 4, torch.bfloat16)
 
 
 def _gn_inputs(B, H, W, C, film, dtype, dev, seed=0):
@@ -286,6 +288,112 @@ def test_group_norm_kernel_matches_plain_on_card(cuda, B, H, W, C, G, film,
     torch.testing.assert_close(y.float(), ref.float(), rtol=tol, atol=tol)
     assert torch.equal(y, fn.fused_groupnorm_silu(x, gamma, beta, G, scale,
                                                   shift))
+
+
+# the wide256 CondUNet's chain shapes (H, W, C), G = 32
+_MAIN_PATH = [(128, 128, 128), (128, 128, 256), (64, 64, 256), (64, 64, 128),
+              (32, 32, 384), (32, 32, 256), (32, 32, 128), (16, 16, 512),
+              (16, 16, 384), (16, 16, 256), (16, 16, 128), (8, 8, 512),
+              (8, 8, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nd", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("H,W,C", _MAIN_PATH)
+def test_policy_b4_matches_the_plain_chain_at_every_main_path_shape_on_card(
+        cuda, H, W, C, nd):
+    """Policy-mode B4 (bf16 x, batch 16, G=32, with and without FiLM) in
+    both regimes against ``gn_film_silu_policy_plain``: the same rounding
+    points, so only the statistics' summation order differs. bf16 norm
+    dtype: every element within 2 bf16 ulps (at the magnitude the chain
+    rounds at: ``tools/tune_group_norm.py::bf16_ulps``), under 1 % differ
+    at all (the counts are printed); float32: within 1e-4 of the largest
+    output. A rerun gives the same bits."""
+    from superdiff_torch.tools.tune_group_norm import (bf16_ulps,
+                                                       chain_magnitude)
+
+    for film in (True, False):
+        x, gamma, beta, scale, shift = _gn_inputs(16, H, W, C, film,
+                                                  torch.bfloat16, cuda,
+                                                  seed=C + H)
+        want = fn.gn_film_silu_policy_plain(x, gamma, beta, 32, nd, scale,
+                                            shift)
+        for regime in ("cluster", "three_pass"):
+            call = lambda: fn._launch(x, gamma, beta, 32, scale, shift, 1e-5,
+                                      nd, True, regime)
+            got = call()
+            torch.cuda.synchronize()
+            assert got.dtype == nd and got.shape == x.shape
+            ulps = bf16_ulps(got, want, chain_magnitude(
+                fn, x, gamma, beta, 32, nd, scale, shift))
+            differ = (got != want).sum().item()
+            print(f"{(H, W, C)} film={film} {nd} {regime}: max "
+                  f"{ulps.max().item():.3g} bf16 ulps, {differ} of "
+                  f"{want.numel()} elements differ")
+            assert torch.equal(got, call())
+            if nd == torch.bfloat16:
+                assert ulps.max().item() <= 2
+                assert differ < 0.01 * want.numel()
+            else:
+                torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * (
+                    1 + want.abs().max().item()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("regime", ["cluster", "three_pass"])
+def test_b4_in_a_cuda_graph_equals_the_eager_launch_on_card(cuda, regime):
+    """B4 captured into a CUDA graph (policy and folded mode) and replayed
+    twice gives the eager launch's bits; its launches under capture are
+    counted as captured."""
+    x, gamma, beta, scale, shift = _gn_inputs(4, 32, 32, 128, True,
+                                              torch.bfloat16, cuda)
+    calls = [lambda: fn._launch(x, gamma, beta, 32, scale, shift, 1e-5,
+                                torch.bfloat16, True, regime),
+             lambda: fn._launch(x, gamma, beta, 32, scale, shift, 1e-5,
+                                torch.bfloat16, False, regime)]
+    want = [c() for c in calls]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for c in calls:
+            c()
+    torch.cuda.current_stream().wait_stream(side)
+    fn.reset_launches()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [c() for c in calls]
+    assert fn.launches == 2 and sum(fn.captured_by_shape.values()) == 2
+    for _ in range(2):
+        for o in outs:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for o, w in zip(outs, want):
+            assert torch.equal(o, w)
+
+
+@pytest.mark.cuda
+def test_condunet_launches_b4_for_every_chain_without_grad_on_card(cuda):
+    """One full-width wide256 call under no_grad launches B4 once per
+    GroupNorm->(FiLM)->SiLU chain, 51 in all (25 with FiLM), and one with
+    gradients wanted launches none (the plain chain under autograd)."""
+    from superdiff_torch.models.presets import build_model
+
+    model = build_model("wide256", device=cuda).init_parameters(0)
+    model.set_norm_dtype(torch.bfloat16)
+    args = (torch.randn((2, 256, 256, 1), device=cuda),
+            torch.tensor([5, 900], device=cuda),
+            torch.tensor([0, 1], device=cuda))
+    fn.reset_launches()
+    with torch.no_grad():
+        model(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == 51
+    assert sum(n for k, n in fn.launches_by_shape.items() if k[4]) == 25
+    fn.reset_launches()
+    model(*args).float().mean().backward()
+    torch.cuda.synchronize()
+    assert fn.launches == 0
 
 
 @pytest.mark.cuda
@@ -444,9 +552,10 @@ def test_graphed_sampler_equals_the_eager_sampler_on_card(cuda, name):
 
 @pytest.mark.cuda
 def test_graphed_refunet_launches_b4_inside_the_graph_on_card(cuda):
-    """A RefUNet DDIM run as one graph per step: B4 (three kernels per
-    GroupNorm->SiLU) is in the graph (the profiler sees its kernels in the
-    replays, 10 per step), and the samples equal the eager run's."""
+    """A RefUNet DDIM run as one graph per step: B4 is in the graph (the
+    profiler sees its kernels in the replays: one ``gn_cluster`` or one
+    ``gn_apply`` per GroupNorm->SiLU, 10 per step), and the samples equal
+    the eager run's."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -466,7 +575,7 @@ def test_graphed_refunet_launches_b4_inside_the_graph_on_card(cuda):
         got = graphed(gen())
         torch.cuda.synchronize()
     n_apply = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
-                  and "gn_apply" in e.name)
+                  and ("gn_apply" in e.name or "gn_cluster" in e.name))
     assert n_apply == 10 * 5, n_apply
     want = ts.ddim_sample(s, eps, shape, gen(), num_steps=5)
     assert torch.equal(got, want)
