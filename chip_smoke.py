@@ -128,12 +128,47 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    the eager sampler's bits); DPM++-10; SuperDiff OR with logq; then a
    second service on the imported RefUNet run, one DDIM-50 request (B4
    inside the graph); latencies, samples/s, captures and the graph pool;
-8. a JSON line per kernel shape, the card line, the kernels line, and last
+8. the data layer and evaluation (under PyTorch's default cuDNN TF32):
+   (a) a flat tree of 2 x 224 grayscale PNGs, 512-1024 px a side and not
+       square, written by the port's own PNG writer with every row filter,
+       some 16-bit and some RGB, split 70/15/15 by
+       superdiff_torch.data.split; host decode ms per image by size (the
+       C++ row unfilter, and the numpy plain version's time at 1024²
+       Paeth), host_resize and CLAHE ms, BatchIterator images/s in its
+       decode epoch and cached epoch at batch 16, 256², the native shard's
+       build s and NativeBatchIterator images/s (the DataModule must hand
+       out the native iterator);
+   (b) superdiff_torch.cli.train on the tree (--dataset-root, native
+       loader) and --synthetic, full-width wide256 at 256², batch 16, two
+       epochs of the train split's steps each, validation after the second
+       (the tree's val split, wrap-padded): images/s and ms per step of the
+       second epoch, the profiled device idle share, the val loss, 8/8/8
+       B1/B2/B3 per train step, 0 B4 per train step and 51 per validation
+       batch;
+   (c) superdiff_torch.cli.evaluate on the tree run: DDIM-100 graphed, 64
+       samples at batch 16, FID against the test split under the
+       classifier (artifacts/extractors/smallcnn_trained_256.npz),
+       resnet18 (resnet18_rand_seed1234.npz), random and diffusion
+       extractors, each finite; the seconds of sampling and of each
+       extractor; B4 launches counted in the run (sampler warm-up and
+       capture, 5 per classifier batch, 3 per random batch, 51 per
+       diffusion batch), and per batch of each extractor alone (5, 3, 51
+       B4 and 8 B1);
+   (d) B4 at the SmallCNN's five chain shapes (float32, G=8, eps 1e-6,
+       batch 16) against the plain chain (max abs < 1e-4) and a rerun
+       (same bits), with its device time (profiler, and CUDA events over a
+       captured graph of 20 calls, which the plain chain and the library
+       chain also get), bound, plain and library times;
+       the extractor's features of the 64 real and 64 generated images and
+       their FID through B4 and through the plain chain (relative L2 <
+       1e-4, FID within 1e-3 relative);
+9. a JSON line per kernel shape, the card line, the kernels line, and last
    the result line {"ok": true, "device": {...}}. The kernels line holds
    B1 at the path shapes, B2 / B3 (their launches from 5b), policy-mode
    B4 at the 18 chain shapes of wide256 (13 sizes, FiLM or not; the
    regime launch_geometry picks, timed in 4b) and folded-mode B4 at the
-   RefUNet's three. A B1/B4 row's
+   RefUNet's three, and folded-mode B4 at the SmallCNN's five (launches
+   counted in 8c's cli.evaluate run). A B1/B4 row's
    `launches` is its main-path run's (4a, 6a) launches at that shape,
    run_launches of three counts taken in that run and printed beside it:
    `wrapper_launches`, `captured_per_replay` and `graph_replays`.
@@ -156,7 +191,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 IN_CHECKOUT = os.path.isdir(os.path.join(HERE, "superdiff_torch"))
 if IN_CHECKOUT:
     sys.path.insert(0, HERE)
-    from superdiff_torch.tools.timing import cuda_time_ms, kernel_device_ms
+    from superdiff_torch.tools.timing import (cuda_time_ms, graph_time_ms,
+                                              kernel_device_ms)
 KERNEL_SRC = "superdiff_torch/csrc/flash_attn_fwd.cu"
 TPU_KERNEL = "superdiff_tpu/ops/flash_attention.py:56"
 BWD_SRC = "superdiff_torch/csrc/flash_attn_bwd.cu"
@@ -212,6 +248,16 @@ WIDE256_CALLS_B4 = 51    # GroupNorm->(FiLM)->SiLU chains per wide256 call
 # convolutions IEEE): only B4's summation order differs
 REF_REL_TOL = 1e-4
 REF_GRAD_REL_TOL = 1e-3
+# phase 8: the PNG tree (images per class), and the SmallCNN extractor's
+# GroupNorm->SiLU chains (B, H, W, C) at batch 16 on 256² inputs, G=8,
+# eps 1e-6, float32; B4 against the plain chain (max abs), the whole
+# extractor's features (relative L2) and their FID (relative)
+TREE_PER_CLASS = 224
+SMALLCNN_SHAPES = [(16, 128, 128, 32), (16, 64, 64, 64), (16, 32, 32, 128),
+                   (16, 16, 16, 256), (16, 8, 8, 256)]
+SMALLCNN_B4_TOL = 1e-4
+SMALLCNN_FEAT_TOL = 1e-4
+SMALLCNN_FID_TOL = 1e-3
 
 
 def log(msg):
@@ -1628,6 +1674,389 @@ def phase_ref(fa, fn, work, sample, load_run, wide_model):
     return out, main_counts
 
 
+def xray_like(rng, h, w):
+    """A smooth chest-X-ray-like uint8 image: a vertical gradient, two
+    bright elliptical fields and fine noise."""
+    import numpy as np
+
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    yy, xx = yy / h, xx / w
+    img = 40 + 60 * yy
+    for cx in (0.3, 0.7):
+        r2 = ((xx - cx) / 0.17) ** 2 + ((yy - 0.5) / 0.3) ** 2
+        img += 110 * np.exp(-r2 * rng.uniform(1.5, 3.0))
+    img += rng.normal(0, 6, (h, w)).astype(np.float32)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def make_xray_tree(root, per_class, rng):
+    """A flat source tree root/{NORMAL,TB}/*.png written with the port's PNG
+    writer (no PIL): non-square sizes from 512 to 1024 px a side, row
+    filters None/Sub/Up/Average/Paeth and mixed, every 7th image 16-bit
+    grayscale, every 11th RGB. Returns the bytes written."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from superdiff_torch.utils.visualization import png_bytes
+
+    def write(job):
+        cls, i, seed = job
+        r = np.random.default_rng(seed)
+        h, w = (int(v) for v in r.integers(512, 1025, 2))
+        img = xray_like(r, h, w)
+        if i % 7 == 3:
+            img = img.astype(np.uint16) * 257
+        elif i % 11 == 5:
+            img = np.dstack([img, img, img])
+        data = png_bytes(img, filter="cycle" if i % 6 == 5 else i % 6)
+        with open(os.path.join(root, cls, f"{cls}_{i:04d}.png"), "wb") as f:
+            f.write(data)
+        return len(data)
+
+    jobs = []
+    for cls in ("NORMAL", "TB"):
+        os.makedirs(os.path.join(root, cls), exist_ok=True)
+        jobs += [(cls, i, int(s)) for i, s in enumerate(
+            rng.integers(0, 2 ** 31, per_class))]
+    # zlib and most numpy kernels release the GIL: threads write in parallel
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 4) as pool:
+        return sum(pool.map(write, jobs))
+
+
+def trace_idle_share(path):
+    """Device busy ms and idle share of a torch.profiler chrome trace:
+    the union of kernel, memcpy and memset intervals against the span of
+    all the trace's events."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    if not spans:
+        return "not measured", "not measured"
+    busy, end = 0.0, -1.0
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    window = (max(e["ts"] + e["dur"] for e in events)
+              - min(e["ts"] for e in events))
+    return busy / 1e3, 1.0 - busy / window
+
+
+def phase_data_eval(fa, fn, work, card_line):
+    """The data and evaluation slice (phase 8 of the module docstring)."""
+    import numpy as np
+    import torch
+
+    from superdiff_torch import config as tcfg
+    from superdiff_torch.analysis import FeatureExtractor, load_classifier
+    from superdiff_torch.analysis.fid import _stats, frechet_distance
+    from superdiff_torch.cli import evaluate as evaluate_cli
+    from superdiff_torch.cli import train as train_cli
+    from superdiff_torch.data import DataModule, image_io, split_dataset
+    from superdiff_torch.data.dataset import BatchIterator
+    from superdiff_torch.data.native_loader import NativeBatchIterator
+    from superdiff_torch.data.transforms import clahe, host_resize
+    from superdiff_torch.diffusion import graphed
+    from superdiff_torch.inference import load_run
+    from superdiff_torch.tools.tune_group_norm import chain_inputs, gn_library
+    from superdiff_torch.utils.visualization import png_bytes
+
+    out = {"card": card_line}
+    rng = np.random.default_rng(8)
+    # (a) a PNG tree, split 70/15/15; host decode, resize, CLAHE, loaders
+    tic = time.time()
+    flat, root = os.path.join(work, "xray_flat"), os.path.join(work, "xray")
+    nbytes = make_xray_tree(flat, TREE_PER_CLASS, rng)
+    counts = split_dataset(flat, os.path.join(root, "TB"))
+    out["tree"] = dict(images=2 * TREE_PER_CLASS, mb=nbytes / 1e6,
+                       split=counts, write_s=time.time() - tic)
+    if image_io.unfilter_backend() != "native":
+        raise AssertionError("PNG rows are not unfiltered by the C++ library")
+    files = sorted(os.path.join(flat, "NORMAL", n)
+                   for n in os.listdir(os.path.join(flat, "NORMAL")))
+    by_size = {}
+    for path in files[:48]:
+        tic = time.perf_counter()
+        img = image_io.read_gray(path)
+        dt = time.perf_counter() - tic
+        side = "<=768" if max(img.shape) <= 768 else ">768"
+        by_size.setdefault(side, []).append(dt * 1e3)
+    big = xray_like(rng, 1024, 1024)
+    big_png = os.path.join(work, "paeth_1024.png")
+    with open(big_png, "wb") as f:
+        f.write(png_bytes(big, filter=4))
+    # the numpy plain version, over 16 Paeth rows of 1024 bytes
+    raw_rows = np.zeros(16 * 1025, np.uint8)
+    raw_rows[::1025] = 4
+    tic = time.perf_counter()
+    for _ in range(5):
+        image_io.read_gray(big_png)
+    paeth_ms = (time.perf_counter() - tic) * 200
+    tic = time.perf_counter()
+    image_io.unfilter_plain(raw_rows, 16, 1024, 1)
+    plain_ms = (time.perf_counter() - tic) * 1e3 * 1024 / 16
+    tic = time.perf_counter()
+    for _ in range(5):
+        r256 = host_resize(big, 256, "pad")
+    resize_ms = (time.perf_counter() - tic) * 200
+    tic = time.perf_counter()
+    for _ in range(5):
+        clahe(r256)
+    clahe_ms = (time.perf_counter() - tic) * 200
+    cfg = tcfg.load_config(None, ["training.resolution=256",
+                                  "training.batch_size=16"])
+    cfg.task = "TB"
+    dm = DataModule(cfg, root)
+    idx = dm.index("train")
+    it = BatchIterator(idx, 16, 256, seed=0)
+    rates = []
+    for _ in range(2):                      # decode epoch, cached epoch
+        tic = time.perf_counter()
+        n = sum(len(b["label"]) for b in it)
+        rates.append(n / (time.perf_counter() - tic))
+    tic = time.perf_counter()
+    native_it = dm.iterator("train")        # builds the shard
+    shard_s = time.perf_counter() - tic
+    if not isinstance(native_it, NativeBatchIterator):
+        raise AssertionError(f"DataModule gave {type(native_it).__name__}, "
+                             "not the native loader")
+    tic = time.perf_counter()
+    n = sum(len(b["label"]) for b in native_it)
+    native_rate = n / (time.perf_counter() - tic)
+    out["host"] = dict(
+        decode_ms_by_side={k: float(np.mean(v)) for k, v in by_size.items()},
+        decode_images_by_side={k: len(v) for k, v in by_size.items()},
+        decode_ms_1024_paeth=paeth_ms,
+        unfilter_plain_ms_1024_paeth_from_16_rows=plain_ms,
+        host_resize_pad_ms_1024_to_256=resize_ms, clahe_ms_256=clahe_ms,
+        batch_iterator_images_per_s=dict(decode_epoch=rates[0],
+                                         cached_epoch=rates[1]),
+        native_shard_build_s=shard_s,
+        native_images_per_s=native_rate)
+    log(f"phase 8a host data path ({card_line}): " + json.dumps(out["tree"])
+        + " " + json.dumps(out["host"]))
+
+    # (b) cli.train on the tree (native loader) and on --synthetic, wide256
+    steps = len(native_it)
+    n_val = -(-len(dm.index("val")) // 16)
+    legs = {}
+    for leg in ("tree", "synthetic"):
+        fa.reset_launches()
+        fn.reset_launches()
+        src = (["--dataset", "TB", "--dataset-root", root] if leg == "tree"
+               else ["--synthetic", "--set",
+                     f"training.steps_per_epoch={steps}", "--set",
+                     f"training.eval_batches={n_val}"])
+        buf = io.StringIO()
+        tic = time.time()
+        with contextlib.redirect_stdout(buf):
+            rc = train_cli.main([
+                *src, "--device", "cuda", "--experiment-id", "smoke8",
+                "--run-id", leg, *WIDE256,
+                "--set", "training.batch_size=16",
+                "--set", "training.num_epochs=2",
+                "--set", "training.eval_every=2",
+                "--set", "training.save_every=0",
+                "--set", "logging.profile_steps=5",
+                "--set", "logging.stdout=false",
+                "--set", f"paths.local_base={work}"])
+        if rc != 0:
+            raise AssertionError(f"cli.train ({leg}) returned {rc}")
+        run_dir = os.path.join(work, "outputs", "TB" if leg == "tree"
+                               else "PNEUMONIA",
+                               f"experiment_smoke8_run_{leg}")
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            metrics = [json.loads(line) for line in f]
+        tr, va = epoch_rows(metrics, "avg_loss"), epoch_rows(metrics,
+                                                             "val_loss")
+        busy, idle = trace_idle_share(os.path.join(run_dir, "profile",
+                                                   "trace.json"))
+        vb = n_val
+        counts = flash_counts(fa)
+        expect = (8 * (2 * steps + vb), 16 * steps, 16 * steps)
+        if counts != expect:
+            raise AssertionError(f"{leg} training launched (B1, B2, B3) = "
+                                 f"{counts}, expected {expect}")
+        check_b4(fn.launches, vb, f"{leg} training (validation batches)")
+        if len(tr) != 2 or len(va) != 1 or not np.isfinite(
+                [m["avg_loss"] for m in tr] + [va[0]["val_loss"]]).all():
+            raise AssertionError(f"{leg} training metrics: {metrics}")
+        ips = tr[1]["images_per_sec"]
+        legs[leg] = dict(
+            steps_per_epoch=steps, images_per_s_by_epoch=[
+                m["images_per_sec"] for m in tr],
+            images_per_s=ips, ms_per_step=16 / ips * 1e3,
+            val_loss=va[0]["val_loss"], val_batches=vb,
+            train_loss_by_epoch=[m["avg_loss"] for m in tr],
+            profiled_device_busy_ms=busy, device_idle_share=idle,
+            b4_per_train_step=0, b4_per_val_batch=fn.launches // vb,
+            whole_leg_s=time.time() - tic)
+        if leg == "tree":
+            tree_run = run_dir
+    legs["tree_over_synthetic_images_per_s"] = (
+        legs["tree"]["images_per_s"] / legs["synthetic"]["images_per_s"])
+    out["train"] = legs
+    log(f"phase 8b cli.train wide256 256² batch 16 on the tree vs "
+        f"--synthetic ({card_line}): " + json.dumps(legs))
+
+    # (c) cli.evaluate on the tree run: DDIM-100, 64 samples, 4 extractors
+    ext = os.path.join(HERE, "artifacts", "extractors")
+    cls_npz = os.path.join(ext, "smallcnn_trained_256.npz")
+    r18_npz = os.path.join(ext, "resnet18_rand_seed1234.npz")
+    fa.reset_launches()
+    fn.reset_launches()
+    graphed.reset_counts()
+    record = {}
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = evaluate_cli.main([
+            "--run-dir", tree_run, "--dataset-root", root,
+            "--num-samples", "64", "--batch-size", "16",
+            "--extractor", "classifier,resnet18,random,diffusion",
+            "--extractor-checkpoint",
+            f"classifier={cls_npz},resnet18={r18_npz}",
+            "--out", os.path.join(work, "eval.json"), "--device", "cuda"],
+            record=record)
+    if rc != 0:
+        raise AssertionError(f"cli.evaluate returned {rc}")
+    eval_b4 = run_launches(dict(fn.launches_by_shape),
+                           dict(fn.captured_by_shape))
+    eval_b4_wrapper = dict(fn.launches_by_shape)
+    with open(os.path.join(work, "eval.json")) as f:
+        results = json.load(f)
+    fids = results["fid_by_extractor"]
+    if not all(np.isfinite(v) for v in fids.values()) or len(fids) != 4:
+        raise AssertionError(f"FIDs {fids}")
+    if graphed.captures != 1 or graphed.replays != 400:
+        raise AssertionError(f"evaluate sampling: {graphed.captures} "
+                             f"captures, {graphed.replays} replays")
+    # 8 feature batches per extractor (64 real + 64 generated, batch 16):
+    # classifier 5 B4 each, random 3, diffusion 51 (+ 8 B1); the sampler's
+    # warm-up and captured steps 51 each
+    wrapper_b4 = sum(eval_b4_wrapper.values())
+    expect_b4 = 8 * (5 + 3 + WIDE256_CALLS_B4) + WIDE256_CALLS_B4 * (
+        graphed.WARMUP_STEPS + 1)
+    if wrapper_b4 != expect_b4:
+        raise AssertionError(f"evaluate: {wrapper_b4} B4 wrapper launches, "
+                             f"expected {expect_b4}")
+    # per batch, each extractor alone, on a batch of the test split
+    run_cfg, f_model, sched = load_run(tree_run, device="cuda")
+    real = next(iter(DataModule(run_cfg, root).device_batches(
+        "test", None, device="cuda")))["image"]
+    per_batch = {}
+    probe_t = min(100, run_cfg.training.num_timesteps - 1)
+    for name, kw in (("classifier", dict(checkpoint=cls_npz)),
+                     ("random", {}),
+                     ("diffusion", dict(model=f_model, schedule=sched,
+                                        timestep=probe_t))):
+        ex = FeatureExtractor(name, device="cuda", **kw)
+        ex.extract(real)                    # warm
+        fa.reset_launches()
+        fn.reset_launches()
+        ex.extract(real)
+        torch.cuda.synchronize()
+        per_batch[name] = dict(B4=fn.launches, B1=fa.launches,
+                               by_shape={str(k): v for k, v in
+                                         fn.launches_by_shape.items()})
+    if (per_batch["classifier"]["B4"], per_batch["random"]["B4"],
+            per_batch["diffusion"]["B4"], per_batch["diffusion"]["B1"]) != (
+                5, 3, WIDE256_CALLS_B4, 8):
+        raise AssertionError(f"B4/B1 launches per feature batch: {per_batch}")
+    n_feat = 2 * results["num_generated"]
+    out["evaluate"] = dict(
+        fid_by_extractor=fids, sample_s=record["sample_s"],
+        sampler=results["sampler"], sampler_steps=results["sampler_steps"],
+        extract_s=record["extract_s"],
+        features_per_s={k: n_feat / v for k, v in
+                        record["extract_s"].items()},
+        graph_replays=graphed.replays, b4_wrapper_launches=wrapper_b4,
+        launches_per_batch=per_batch)
+    log(f"phase 8c cli.evaluate ({card_line}): " + json.dumps(out["evaluate"]))
+
+    # (d) B4 at the SmallCNN's chain shapes against the plain chain, then the
+    # whole extractor's features and FID with B4 and with the plain chain
+    rows = {}
+    for (B, H, W, C) in SMALLCNN_SHAPES:
+        x, gamma, beta, _, _ = chain_inputs(B, H, W, C, False, torch.float32,
+                                            seed=C + H)
+        call = lambda: fn.fused_groupnorm_silu(x, gamma, beta, 8, eps=1e-6)
+        y = call()
+        ref = fn.gn_silu_plain(x, gamma, beta, 8, eps=1e-6)
+        err = (y - ref).abs().max().item()
+        if not (torch.isfinite(y).all() and err < SMALLCNN_B4_TOL
+                and torch.equal(y, call())):
+            raise AssertionError(f"B4 at the SmallCNN shape {(B, H, W, C)}: "
+                                 f"max abs err {err:.3e} or rerun differs")
+        # the profiler loses kernel events now and then in a long run: retake
+        dev = "not measured"
+        for _ in range(3):
+            if dev == "not measured":
+                dev = kernel_device_ms(call, kernel=GN_KERNELS)
+        plain = lambda: fn.gn_silu_plain(x, gamma, beta, 8, eps=1e-6)
+        library = lambda: gn_library(x, gamma, beta, 8, None, None)
+        row = dict(shape=[B, H, W, C], groups=8, eps=1e-6, max_abs_err=err,
+                   ms=cuda_time_ms(call, 50), kernel_device_ms=dev,
+                   graph_ms=graph_time_ms(call),
+                   plain_ms=cuda_time_ms(plain, 20),
+                   plain_graph_ms=graph_time_ms(plain),
+                   library_ms=cuda_time_ms(library, 50),
+                   library_graph_ms=graph_time_ms(library),
+                   bound_ms=2 * x.numel() * 4 / HBM_BPS * 1e3,
+                   bound_by="bytes",
+                   regime=fn.launch_geometry(B, H * W, C, 8, torch.float32,
+                                             torch.float32, True).regime)
+        rows[(H, W, C)] = row
+        log("smallcnn_b4_check " + json.dumps(row))
+        del x, y, ref
+    model = load_classifier(cls_npz, device="cuda")
+    gen = torch.from_numpy(record["samples"]).cuda()
+    reals = torch.cat([b["image"] for b in DataModule(run_cfg, root)
+                       .device_batches("test", None, device="cuda")])[:64]
+
+    def feats(images):
+        with torch.no_grad():
+            return torch.cat([model(images[i:i + 16],
+                                    return_features=True)[1].mean((1, 2))
+                              for i in range(0, len(images), 16)]
+                             ).cpu().numpy().astype(np.float64)
+
+    with tf32(False):
+        k_real, k_gen = feats(reals), feats(gen)
+        with b4_swapped_for_plain(fn):
+            p_real, p_gen = feats(reals), feats(gen)
+    rel = float(np.linalg.norm(np.concatenate([k_real, k_gen])
+                               - np.concatenate([p_real, p_gen]))
+                / np.linalg.norm(np.concatenate([p_real, p_gen])))
+    fid_k = frechet_distance(*_stats(k_real), *_stats(k_gen))
+    fid_p = frechet_distance(*_stats(p_real), *_stats(p_gen))
+    fid_rel = abs(fid_k - fid_p) / abs(fid_p)
+    if not (rel < SMALLCNN_FEAT_TOL and fid_rel < SMALLCNN_FID_TOL):
+        raise AssertionError(f"SmallCNN B4 vs plain: features rel L2 "
+                             f"{rel:.3e}, FID rel {fid_rel:.3e}")
+    out["smallcnn_b4"] = dict(
+        rows=[rows[k] for k in sorted(rows, reverse=True)],
+        b4_device_ms_5_chains=(
+            sum(r["kernel_device_ms"] for r in rows.values())
+            if all(isinstance(r["kernel_device_ms"], float)
+                   for r in rows.values()) else "not measured"),
+        graph_ms_5_chains=sum(r["graph_ms"] for r in rows.values()),
+        plain_graph_ms_5_chains=sum(r["plain_graph_ms"]
+                                    for r in rows.values()),
+        library_graph_ms_5_chains=sum(r["library_graph_ms"]
+                                      for r in rows.values()),
+        plain_ms_5_chains=sum(r["plain_ms"] for r in rows.values()),
+        bound_ms_5_chains=sum(r["bound_ms"] for r in rows.values()),
+        features_rel_l2=rel, fid_b4=fid_k, fid_plain=fid_p,
+        fid_rel_diff=fid_rel)
+    log(f"phase 8d SmallCNN B4 vs plain chain ({card_line}): "
+        + json.dumps({k: v for k, v in out["smallcnn_b4"].items()
+                      if k != "rows"}))
+    return out, rows, eval_b4
+
+
 @contextlib.contextmanager
 def b4_swapped_for_plain(fn):
     """B4's wrapper runs the plain version on CUDA tensors inside the block
@@ -1887,13 +2316,19 @@ def main() -> int:
                                 os.path.join(work, "imported_TB"))
     log(f"phase 7 serving ({card_line}): " + json.dumps(serving))
 
+    # (8) the data layer and evaluation: cli.train on a PNG tree, then
+    # cli.evaluate's FIDs, under PyTorch's default cuDNN TF32 (a user's run)
+    with tf32(True):
+        data_eval, smallcnn_rows, eval_b4 = phase_data_eval(fa, fn, work,
+                                                            card_line)
+
     summary = dict(card=card_line, build_s=build_s, training=training_out,
                    ddpm1000_batch16=ddpm, graph_steps=graph_rows,
                    denoiser_ms_batch16=step_ms,
                    slice_rel_l2_bf16_vs_f32=rel, superdiff=superdiff,
                    profiles=profiles, wide256_norm_chains=chains,
                    ref_slice=ref_out, serving=serving,
-                   total_s=time.time() - t_start)
+                   data_eval=data_eval, total_s=time.time() - t_start)
     log("slice " + json.dumps(summary))
 
     kernels = []
@@ -1977,6 +2412,22 @@ def main() -> int:
         if kernels[-1]["captured_per_replay"] == 0:
             raise AssertionError(f"B4 never launched at path shape "
                                  f"{(B, H, W, C, G)} in the ref DDPM graph")
+    for (B, H, W, C) in SMALLCNN_SHAPES:
+        row = smallcnn_rows[(H, W, C)]
+        kernels.append(dict(
+            name=f"group_norm_silu[f32 B{B} {H}x{W} C{C} G8 eps1e-6 "
+                 "SmallCNN]",
+            route="cuda", source=GN_SRC, replaces=TPU_GN,
+            launches=eval_b4.get((H, W, C, 8, False, "float32"), 0),
+            regime=row["regime"], max_abs_err=row["max_abs_err"],
+            ms=row["ms"], kernel_device_ms=row["kernel_device_ms"],
+            graph_ms=row["graph_ms"], plain_ms=row["plain_ms"],
+            plain_graph_ms=row["plain_graph_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=row["library_ms"],
+            library_graph_ms=row["library_graph_ms"]))
+        if kernels[-1]["launches"] == 0:
+            raise AssertionError(f"B4 never launched at the SmallCNN shape "
+                                 f"{(B, H, W, C)} in cli.evaluate")
     print(card_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,14 @@
-"""X-ray normalization and augmentation on the device.
+"""X-ray preprocessing: host resize and CLAHE, device normalization and
+augmentation.
 
-Port of the device side of ``superdiff_tpu/data/transforms.py``: the
+Port of ``superdiff_tpu/data/transforms.py``. The host side works on uint8
+numpy arrays and equals the JAX package's PIL and OpenCV calls bit for bit
+without either library: :func:`host_resize` (the resize strategies ``pad``,
+``center_crop``, ``resize`` through ``data/image_io.py``) and :func:`clahe`
+(OpenCV's CLAHE for 8-bit images in numpy). The device side: the
 normalization modes ``minmax`` / ``zscore`` / ``tanh`` / ``none`` and the
 risk-tiered augmentation ``none`` / ``low`` / ``medium`` (``high`` raises),
-vectorised over an NHWC batch. The host side (``host_resize``, ``clahe``)
-comes with the data layer.
+vectorised over an NHWC batch.
 
 The rotation keeps the reference's arithmetic, three 1-D bilinear shears
 (Paeth), so results match it; ``F.grid_sample`` would be a different
@@ -22,11 +26,106 @@ from __future__ import annotations
 import math
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from superdiff_torch.data.image_io import crop_u8, resize_bilinear_u8
+
 RISK_TIERS = ("none", "low", "medium")
 NORMALIZATIONS = ("minmax", "zscore", "tanh", "none")
+RESIZE_STRATEGIES = ("pad", "center_crop", "resize")
+
+
+# --------------------------------------------------------------- host side --
+
+def host_resize(img: np.ndarray, resolution: int,
+                strategy: str = "pad") -> np.ndarray:
+    """Apply the resize strategy to a ``(H, W)`` uint8 image -> ``(R, R)``
+    uint8: ``resize`` stretches (PIL bilinear); ``pad`` scales the short
+    side to R (sizes by Python's ``round``, half to even) and centre-crops;
+    ``center_crop`` crops only, so an image smaller than R comes out padded
+    with black on the right and bottom."""
+    if strategy not in RESIZE_STRATEGIES:
+        raise ValueError(f"unknown resize strategy {strategy!r} "
+                         f"(have {RESIZE_STRATEGIES})")
+    R = resolution
+    h, w = img.shape
+    if strategy == "resize":
+        return resize_bilinear_u8(img, (R, R))
+    if strategy == "pad":
+        scale = R / min(w, h)
+        img = resize_bilinear_u8(img, (max(R, round(w * scale)),
+                                       max(R, round(h * scale))))
+        h, w = img.shape
+    left = max(0, (w - R) // 2)
+    top = max(0, (h - R) // 2)
+    return crop_u8(img, (left, top, left + R, top + R))
+
+
+def _clahe_luts(src: np.ndarray, tiles: int, th: int, tw: int,
+                clip: int) -> np.ndarray:
+    """Per-tile lookup tables ``(tiles*tiles, 256)`` uint8: clipped,
+    redistributed histogram, ``saturate_cast<uchar>(cumsum * (255 /
+    area))`` in float32 (round half to even)."""
+    t = src[:tiles * th, :tiles * tw].reshape(tiles, th, tiles, tw)
+    ids = np.arange(tiles * tiles).reshape(tiles, 1, tiles, 1)
+    hist = np.bincount((ids * 256 + t).reshape(-1),
+                       minlength=tiles * tiles * 256).reshape(-1, 256)
+    if clip > 0:
+        excess = np.maximum(hist - clip, 0).sum(axis=1)
+        hist = np.minimum(hist, clip) + (excess // 256)[:, None]
+        for k, residual in enumerate(excess % 256):
+            if residual:
+                step = max(256 // int(residual), 1)
+                hist[k, np.arange(0, 256, step)[:residual]] += 1
+    scale = np.float32(255.0) / np.float32(th * tw)
+    lut = np.cumsum(hist, axis=1).astype(np.float32) * scale
+    return np.clip(np.rint(lut), 0, 255).astype(np.uint8)
+
+
+def clahe(img_uint8: np.ndarray, clip_limit: float = 2.0,
+          tile_grid: int = 8) -> np.ndarray:
+    """OpenCV's ``createCLAHE(clip_limit, (tile_grid, tile_grid)).apply``
+    for a ``(H, W)`` uint8 image, in numpy: the image padded by
+    ``BORDER_REFLECT_101`` to whole tiles (on both sides' far edges when
+    either size is not a multiple of the grid), clip limit ``max(int(
+    clip_limit * area / 256), 1)``, the excess spread as ``excess // 256``
+    per bin and the rest one by one at stride ``max(256 // rest, 1)``, and
+    the four nearest tiles' tables blended in float32 in OpenCV's order."""
+    src = np.asarray(img_uint8, dtype=np.uint8)
+    h, w = src.shape
+    n = tile_grid
+    ext = src
+    if h % n or w % n:
+        ext = np.pad(src, ((0, n - h % n), (0, n - w % n)), mode="reflect")
+    th, tw = ext.shape[0] // n, ext.shape[1] // n
+    clip = 0
+    if clip_limit > 0:
+        clip = max(int(clip_limit * (th * tw) / 256), 1)
+    luts = _clahe_luts(ext, n, th, tw, clip).astype(np.float32)
+
+    def axis(size, tile):
+        f = (np.arange(size, dtype=np.float32)
+             * (np.float32(1.0) / np.float32(tile)) - np.float32(0.5))
+        lo = np.floor(f).astype(np.int64)
+        a = (f - lo.astype(np.float32)).astype(np.float32)
+        return (np.maximum(lo, 0), np.minimum(lo + 1, n - 1), a,
+                (np.float32(1.0) - a).astype(np.float32))
+
+    ty1, ty2, ya, ya1 = axis(h, th)
+    tx1, tx2, xa, xa1 = axis(w, tw)
+    v = src.astype(np.int64)
+
+    def lut(ty, tx):
+        return luts[(ty[:, None] * n + tx[None, :]), v]
+
+    res = ((lut(ty1, tx1) * xa1 + lut(ty1, tx2) * xa) * ya1[:, None]
+           + (lut(ty2, tx1) * xa1 + lut(ty2, tx2) * xa) * ya[:, None])
+    return np.clip(np.rint(res), 0, 255).astype(np.uint8)
+
+
+# ------------------------------------------------------------- device side --
 
 
 def normalize(batch: torch.Tensor, mode: str = "tanh") -> torch.Tensor:

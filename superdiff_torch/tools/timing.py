@@ -5,6 +5,9 @@
   small shapes it is set by the host's enqueue rate, not by the kernels.
 - :func:`kernel_device_ms`: the kernels' own device time per call, from
   ``torch.profiler`` kernel events.
+- :func:`graph_time_ms`: CUDA-event time per call of calls captured in one
+  CUDA graph and replayed: device time without the host's enqueue between
+  launches, and without the profiler (which loses events in long runs).
 """
 
 
@@ -64,3 +67,32 @@ def kernel_device_ms(fn, iters=20, kernel=("flash_fwd_kernel",)):
         return "not measured"
     return sum(n * sum(many[name]) / len(many[name])
                for name, n in per_call.items()) / 1e3
+
+
+def graph_time_ms(fn, calls=20, replays=10):
+    """CUDA-event ms per call of ``fn``, ``calls`` calls captured in one
+    CUDA graph (after a warm-up call on a side stream) and the graph
+    replayed ``replays`` times. ``fn`` must be capturable: no host
+    synchronisation, no read-back."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (calls * replays)
+    del graph
+    return ms

@@ -13,8 +13,10 @@ Port of ``superdiff_tpu/training/loop.py`` for one device:
   unconditionally).
 
 The loop never waits for the device inside an epoch: losses stay device
-tensors and are fetched once per epoch. Training on a dataset tree
-(``use_synthetic=False``) needs the data layer, which is not ported yet.
+tensors and are fetched once per epoch. Data comes from a class-folder tree
+through ``data/datamodule.py`` (``dataset_root``, else the run paths'
+dataset directory) as raw uint8 batches, augmented and normalized inside
+the train step; ``use_synthetic=True`` trains on generated images instead.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import torch
 
 from superdiff_torch.checkpoint import CheckpointManager
 from superdiff_torch.config import Config, save_config
+from superdiff_torch.data.datamodule import DataModule
 from superdiff_torch.data.synthetic import synthetic_xray_batch
 from superdiff_torch.data.transforms import prepare_batch
 from superdiff_torch.diffusion import ddpm_sample, make_schedule
@@ -73,6 +76,14 @@ def _synthetic_batches(cfg: Config, epoch: int, device,
                "label": torch.from_numpy(labels).long().to(device)}
 
 
+def _uint8_batch(batch: Dict[str, np.ndarray], device
+                 ) -> Dict[str, torch.Tensor]:
+    """A host batch from the tree on ``device``: uint8 images (augmented and
+    normalized inside the step) and int64 labels."""
+    return {"image": torch.from_numpy(batch["image"]).to(device),
+            "label": torch.from_numpy(batch["label"]).long().to(device)}
+
+
 def train(cfg: Config,
           dataset_root: Optional[str] = None,
           resume: bool = True,
@@ -80,6 +91,9 @@ def train(cfg: Config,
           should_stop=None,
           device="cuda") -> Dict[str, float]:
     """Run training per config on ``device``; returns summary metrics.
+
+    ``dataset_root`` overrides the resolved dataset path; with
+    ``use_synthetic`` the synthetic generator stands in for the tree.
 
     Preemption safety: SIGTERM/SIGINT request a graceful stop; the loop
     finishes the current step, saves a checkpoint and returns, and a restart
@@ -94,18 +108,20 @@ def train(cfg: Config,
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but no CUDA device is "
                            "available (pass device='cpu' explicitly)")
-    if not use_synthetic:
-        raise NotImplementedError(
-            "training on a dataset tree needs the data layer (dataset index, "
-            "datamodule, loaders), which is not ported yet (ROADMAP A.10); "
-            "pass use_synthetic=True / --synthetic")
     if not cfg.model.preset:
         cfg.model.preset = preset_for_resolution(t.resolution)
     paths = resolve_paths(cfg).make_all()
     init_logger(paths.log_dir, stdout=cfg.logging.stdout)
     save_config(cfg, os.path.join(paths.output_dir, "config.yaml"))
     generator = set_global_seeds(t.seed, device=device)
-    steps_per_epoch = t.steps_per_epoch if t.steps_per_epoch else 4
+
+    # data
+    dm: Optional[DataModule] = None
+    if not use_synthetic:
+        dm = DataModule(cfg, dataset_root or paths.dataset_dir)
+        dm.index("train")  # fail fast if the tree is missing
+    steps_per_epoch = (t.steps_per_epoch if t.steps_per_epoch
+                       else (len(dm.iterator("train", epoch=0)) if dm else 4))
 
     # model + schedule + state
     schedule = make_schedule(t.num_timesteps, kind=t.schedule,
@@ -148,17 +164,34 @@ def train(cfg: Config,
                              parameterization=parameterization) \
         if t.eval_every > 0 else None
 
+    def _val_batches():
+        """A fixed validation stream (the same batches every pass, so val
+        curves are comparable across epochs): the tree's ``val`` split at
+        epoch 0 as raw uint8 (normalized inside the eval step), None when
+        the tree has no such split; synthetic batches of a constant seed
+        otherwise."""
+        if dm is not None:
+            try:
+                dm.index("val")
+            except (FileNotFoundError, ValueError):
+                return None
+            return (_uint8_batch(b, device)
+                    for b in dm.iterator("val", epoch=0))
+        return _synthetic_batches(cfg, epoch=1_000_003, device=device,
+                                  augmentation="none")
+
     def run_validation() -> Optional[float]:
-        # constant seed -> the same batches every pass, so val curves are
-        # comparable across epochs
+        batches = _val_batches()
+        if batches is None:
+            return None
         losses = []
-        for j, vb in enumerate(_synthetic_batches(
-                cfg, epoch=1_000_003, device=device, augmentation="none")):
+        for j, vb in enumerate(batches):
             if t.eval_batches and j >= t.eval_batches:
                 break
             n = int(vb["image"].shape[0])
             if n != B:
-                # wrap-pad a short batch up to B (deterministic duplicates)
+                # wrap-pad a short batch up to B (deterministic duplicates),
+                # so a val split smaller than the batch still has a curve
                 reps = -(-B // n)
                 vb = {k: v.repeat((reps,) + (1,) * (v.ndim - 1))[:B]
                       for k, v in vb.items()}
@@ -239,8 +272,10 @@ def train(cfg: Config,
             epoch_losses = []
             _sync()
             tic = time.time()
-            for i, batch in enumerate(
-                    _synthetic_batches(cfg, epoch, device)):
+            # tree batches ride as raw uint8: one small upload per batch
+            batches = ((_uint8_batch(b, device) for b in dm.iterator("train"))
+                       if dm else _synthetic_batches(cfg, epoch, device))
+            for i, batch in enumerate(batches):
                 if t.steps_per_epoch and i >= t.steps_per_epoch:
                     break
                 if not conditional:

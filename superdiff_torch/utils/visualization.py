@@ -44,21 +44,66 @@ def _to_display(img: np.ndarray) -> np.ndarray:
     return (img - lo) / max(hi - lo, 1e-6)
 
 
-def png_bytes(gray: np.ndarray, text: Optional[dict] = None) -> bytes:
-    """An 8-bit grayscale PNG of a ``(H, W)`` uint8 array, each row with
-    filter 0, one zlib stream; ``text`` entries become ``tEXt`` chunks."""
-    img = np.ascontiguousarray(gray, dtype=np.uint8)
-    if img.ndim != 2:
-        raise ValueError(f"png_bytes takes a (H, W) array, got {img.shape}")
-    h, w = img.shape
+def _paeth(a, b, c):
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+
+def _filter_rows(raw: np.ndarray, bpp: int, kinds) -> np.ndarray:
+    """PNG row filters (specification, section 9.2) of ``(H, rowbytes)``
+    bytes, row ``r`` with filter ``kinds[r]``; the filter byte leads each
+    row."""
+    x = raw.astype(np.int32)
+    a = np.zeros_like(x)
+    a[:, bpp:] = x[:, :-bpp]
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]
+    c = np.zeros_like(x)
+    c[1:, bpp:] = x[:-1, :-bpp]
+    preds = (0, a, b, (a + b) >> 1, _paeth(a, b, c))
+    kinds = np.asarray(kinds)
+    out = np.empty((x.shape[0], x.shape[1] + 1), dtype=np.uint8)
+    out[:, 0] = kinds
+    for k in range(5):
+        rows = kinds == k
+        out[rows, 1:] = (x[rows] - (preds[k][rows] if k else 0)) & 0xFF
+    return out
+
+
+def png_bytes(img: np.ndarray, text: Optional[dict] = None,
+              filter=0) -> bytes:
+    """A PNG of a ``(H, W)`` uint8 (8-bit grayscale) or uint16 (16-bit
+    grayscale) array or a ``(H, W, 3)`` uint8 array (RGB), one zlib
+    stream; ``text`` entries become ``tEXt`` chunks. ``filter``: the PNG
+    row filter of every row (0-4: None, Sub, Up, Average, Paeth), or
+    ``"cycle"`` for row ``r`` filtered with ``r % 5`` (the decoder's tests
+    and the chip smoke's trees)."""
+    img = np.asarray(img)
+    if img.ndim == 2 and img.dtype == np.uint16:
+        depth, ctype, raw = 16, 0, img.astype(">u2").view(np.uint8)
+    elif img.ndim == 2 or (img.ndim == 3 and img.shape[-1] == 3):
+        img = np.ascontiguousarray(img, dtype=np.uint8)
+        depth, ctype = 8, 0 if img.ndim == 2 else 2
+        raw = img
+    else:
+        raise ValueError(f"png_bytes takes a (H, W) or (H, W, 3) array, got "
+                         f"{img.shape}")
+    h, w = img.shape[:2]
+    raw = raw.reshape(h, -1)
+    kinds = (np.arange(h) % 5 if filter == "cycle"
+             else np.full(h, int(filter)))
+    if kinds.max(initial=0) > 4 or kinds.min(initial=0) < 0:
+        raise ValueError(f"PNG filter types are 0-4, got {filter!r}")
+    rows = _filter_rows(raw, raw.shape[1] // w, kinds)
 
     def chunk(tag: bytes, data: bytes) -> bytes:
         return (struct.pack(">I", len(data)) + tag + data
                 + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), img], axis=1)
     out = [_PNG_SIGNATURE,
-           chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))]
+           chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0,
+                                      0))]
     for key, value in (text or {}).items():
         out.append(chunk(b"tEXt", key.encode("latin-1") + b"\0"
                          + str(value).encode("latin-1", "replace")))

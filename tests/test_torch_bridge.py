@@ -268,7 +268,8 @@ def test_port_imports_without_jax(tmp_path):
     """Every superdiff_torch module (and chip_smoke.py) imports, and the toy
     CondUNet runs on CPU, with jax, flax, optax, orbax and superdiff_tpu
     blocked; the training, checkpoint, CLI, group-norm, reference-import,
-    serving and graphed-sampler modules are among them."""
+    serving, graphed-sampler, data-layer and evaluation modules are among
+    them."""
     script = textwrap.dedent(f"""
         import importlib, pkgutil, sys
         BLOCK = ("jax", "jaxlib", "flax", "optax", "orbax", "superdiff_tpu",
@@ -304,7 +305,11 @@ def test_port_imports_without_jax(tmp_path):
                   "ops._build", "ops.fused_norm", "ops.packed_norm",
                   "models.unet_ref", "compat.torch_import",
                   "cli.import_torch", "serve", "cli.serve",
-                  "diffusion.graphed"):
+                  "diffusion.graphed", "data.image_io", "data.dataset",
+                  "data.split", "data.native_loader", "data.datamodule",
+                  "analysis.features", "analysis.resnet",
+                  "analysis.densenet", "analysis.classifier",
+                  "analysis.fid", "cli.evaluate"):
             assert "superdiff_torch." + m in mods, m
         bad = [n for n in sys.modules if n.split(".")[0] in BLOCK]
         assert not bad, bad

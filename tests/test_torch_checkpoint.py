@@ -221,7 +221,9 @@ def test_run_paths_do_not_depend_on_the_host_name(tmp_path, monkeypatch):
 
 
 def test_train_refuses_what_is_not_there(tmp_path):
-    with pytest.raises(NotImplementedError, match="A.10"):
+    # without --synthetic the loop reads a dataset tree: a missing one
+    # fails at start-up, before any model is built
+    with pytest.raises(FileNotFoundError, match="dataset directory not found"):
         train(_cfg(tmp_path), use_synthetic=False, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):

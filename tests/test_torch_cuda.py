@@ -620,3 +620,142 @@ def test_service_captures_once_per_spec_on_card(cuda):
         np.testing.assert_array_equal(first.result, want[:3].cpu().numpy())
     finally:
         svc.close()
+
+
+# ---- the data layer and the SmallCNN extractor (kernel B4 in float32) ----
+
+SMALLCNN_SHAPES = [(16, 128, 128, 32), (16, 64, 64, 64), (16, 32, 32, 128),
+                   (16, 16, 16, 256), (16, 8, 8, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W,C", SMALLCNN_SHAPES)
+def test_b4_at_the_smallcnn_shapes_matches_plain_on_card(cuda, B, H, W, C):
+    """The SmallCNN's chains (float32, G=8, Flax's eps 1e-6): B4 within
+    1e-4 of the plain chain, a rerun the same bits, one launch each."""
+    g = torch.Generator(device=cuda).manual_seed(C)
+    x = 0.5 + 2 * torch.randn((B, H, W, C), generator=g, device=cuda)
+    gamma = 1 + 0.1 * torch.randn((C,), generator=g, device=cuda)
+    beta = 0.1 * torch.randn((C,), generator=g, device=cuda)
+    fn.reset_launches()
+    y = fn.fused_groupnorm_silu(x, gamma, beta, 8, eps=1e-6)
+    assert fn.launches_by_shape == {(H, W, C, 8, False, "float32"): 1}
+    ref = fn.gn_silu_plain(x, gamma, beta, 8, eps=1e-6)
+    assert (y - ref).abs().max().item() < 1e-4
+    assert torch.equal(y, fn.fused_groupnorm_silu(x, gamma, beta, 8,
+                                                  eps=1e-6))
+
+
+@pytest.mark.cuda
+def test_smallcnn_extractor_runs_its_chains_through_b4_on_card(
+        cuda, monkeypatch):
+    """The trained extractor at 256², batch 16: 5 B4 launches per batch,
+    one per chain shape; its features within 1e-4 (relative L2) of the
+    same network with the plain chain in B4's place."""
+    import os
+
+    from superdiff_torch.analysis import FeatureExtractor
+
+    npz = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "artifacts", "extractors",
+        "smallcnn_trained_256.npz")
+    ex = FeatureExtractor("classifier", checkpoint=npz, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.rand((16, 256, 256, 1), generator=g, device=cuda) * 2 - 1
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    fn.reset_launches()
+    got = torch.from_numpy(ex.extract(x))
+    assert fn.launches_by_shape == {
+        (H, W, C, 8, False, "float32"): 1
+        for _, H, W, C in SMALLCNN_SHAPES}
+    monkeypatch.setattr(fn, "_gn_silu_cuda", lambda x, gamma, beta, G,
+                        scale, shift, eps: fn.gn_silu_plain(
+                            x, gamma, beta, G, scale, shift, eps))
+    want = torch.from_numpy(ex.extract(x))
+    assert got.shape == (16, 256)
+    assert (torch.linalg.norm(got - want) / torch.linalg.norm(want)) < 1e-4
+
+
+def _png_tree(root, per_class=12):
+    """root/TB/{train,val,test}/{NORMAL,TB}/*.png written without PIL."""
+    import numpy as np
+
+    from superdiff_torch.data import split_dataset
+    from superdiff_torch.utils.visualization import png_bytes
+
+    rng = np.random.default_rng(0)
+    for cls in ("NORMAL", "TB"):
+        d = root / "flat" / cls
+        d.mkdir(parents=True)
+        for i in range(per_class):
+            img = rng.integers(0, 256, (20 + i, 24), dtype=np.uint8)
+            (d / f"{i}.png").write_bytes(png_bytes(img, filter=i % 5))
+    split_dataset(str(root / "flat"), str(root / "tree" / "TB"))
+    return str(root / "tree")
+
+
+@pytest.mark.cuda
+def test_device_batches_on_card_equal_the_cpu_result(cuda, tmp_path):
+    """DataModule.device_batches on the card gives the CPU's batches (no
+    augmentation draws: the test split, and train with augmentation none)
+    within one float32 ulp of 1: the card divides by the scalar 255 as a
+    product with its reciprocal, one rounding more than the CPU's
+    division; labels equal."""
+    from superdiff_torch import config as tcfg
+    from superdiff_torch.data import DataModule
+
+    root = _png_tree(tmp_path)
+    cfg = tcfg.load_config(None, ["training.resolution=16",
+                                  "training.batch_size=4",
+                                  "training.augmentation=none",
+                                  "training.use_native_loader=false"])
+    cfg.task = "TB"
+    for split in ("test", "train"):
+        on_card = list(DataModule(cfg, root).device_batches(split, None,
+                                                            device=cuda))
+        on_cpu = list(DataModule(cfg, root).device_batches(split, None,
+                                                           device="cpu"))
+        assert len(on_card) == len(on_cpu) > 0
+        for a, b in zip(on_card, on_cpu):
+            assert a["image"].device.type == cuda.type
+            torch.testing.assert_close(a["image"].cpu(), b["image"], rtol=0,
+                                       atol=2.0 ** -23)
+            assert torch.equal(a["label"].cpu(), b["label"])
+
+
+@pytest.mark.cuda
+def test_native_loader_feeds_a_train_step_on_card(cuda, tmp_path):
+    """NativeBatchIterator's uint8 batches (shard built from a PNG tree)
+    drive a CUDA train step of a small CondUNet: augmented and normalized
+    inside the step, the loss finite, the step counted."""
+    from superdiff_torch import config as tcfg
+    from superdiff_torch.data import DataModule
+    from superdiff_torch.data.native_loader import NativeBatchIterator
+    from superdiff_torch.diffusion import make_schedule
+    from superdiff_torch.models.unet import CondUNet
+    from superdiff_torch.training.state import create_train_state
+    from superdiff_torch.training.steps import make_train_step
+
+    root = _png_tree(tmp_path)
+    cfg = tcfg.load_config(None, ["training.resolution=16",
+                                  "training.batch_size=4"])
+    cfg.task = "TB"
+    it = DataModule(cfg, root).iterator("train")
+    assert isinstance(it, NativeBatchIterator)
+    model = CondUNet(resolution=16, base_channels=32, channel_mults=(1, 2),
+                     num_res_blocks=1, attn_resolutions=(8,), num_heads=2,
+                     num_classes=2, time_emb_dim=32, groups=8,
+                     device=cuda).init_parameters(0)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    state = create_train_state(model, gen)
+    step = make_train_step(make_schedule(20, device=cuda), conditional=True,
+                           augmentation="low")
+    n = 0
+    for b in it:
+        batch = {"image": torch.from_numpy(b["image"]).to(cuda),
+                 "label": torch.from_numpy(b["label"]).long().to(cuda)}
+        assert batch["image"].dtype == torch.uint8
+        state, m = step(state, batch)
+        assert torch.isfinite(m["loss"]).item()
+        n += 1
+    assert n == len(it) > 0 and state.step == n
