@@ -9,8 +9,10 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
 
 1. device: require CUDA; print the card's name and power limit;
 2. build: compile the three kernel sources (csrc/flash_attn_fwd.cu,
-   csrc/flash_attn_bwd.cu, csrc/group_norm_silu.cu), one nvcc each, started
-   together; print the build time and the ptxas reports;
+   csrc/flash_attn_bwd.cu, csrc/group_norm_silu.cu), one nvcc each, and
+   the data layer's three host libraries (the shard loader, the PNG row
+   unfilter, the JPEG decoder), one g++ each, all started together; print
+   the build time and the ptxas reports;
 3. kernels vs their plain versions on the card, bf16 and f32:
    (a) the forward (B1) at the path's shapes (batch 16, and the CFG 2B batch)
        and at shapes with several K tiles, a ragged edge and D=128; a rerun
@@ -131,8 +133,13 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
 8. the data layer and evaluation (under PyTorch's default cuDNN TF32):
    (a) a flat tree of 2 x 224 grayscale PNGs, 512-1024 px a side and not
        square, written by the port's own PNG writer with every row filter,
-       some 16-bit and some RGB, split 70/15/15 by
-       superdiff_torch.data.split; host decode ms per image by size (the
+       some 16-bit and some RGB, plus 2 copies of each committed JPEG
+       fixture (tests/torch_jpeg/: gray, YCbCr 4:2:0 / 4:2:2 / 4:4:4,
+       progressive, restart markers), split 70/15/15 by
+       superdiff_torch.data.split (the train split must hold JPEGs); every
+       fixture decoded by the port's own JPEG decoder (this machine has no
+       PIL) against the manifest's shape and SHA-256, ms per image by form;
+       host decode ms per image by size (the
        C++ row unfilter, and the numpy plain version's time at 1024²
        Paeth), host_resize and CLAHE ms, BatchIterator images/s in its
        decode epoch and cached epoch at batch 16, 256², the native shard's
@@ -162,7 +169,28 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
        the extractor's features of the 64 real and 64 generated images and
        their FID through B4 and through the plain chain (relative L2 <
        1e-4, FID within 1e-3 relative);
-9. a JSON line per kernel shape, the card line, the kernels line, and last
+9. progressive distillation (under PyTorch's default cuDNN TF32): the
+   tree-trained run of 8b exported (cli.export), then
+   (a) superdiff_torch.cli.distill --dataset-root on the tree, students of
+       4, 2 and 1 steps, one epoch per phase, batch 16, wide256 at 256²
+       (bf16 compute): per phase ms per step and images/s over the steps
+       after the first, first and last loss (finite), peak memory; the
+       launches over the run, exactly 24 B1, 8 B2, 8 B3 and 102 B4 per
+       step; then a distillation step alone on a tree batch: the same
+       counts in one step, 16 B1 and 102 B4 in the teacher's two calls
+       alone (so 0 B4 from the student), CUDA-event ms, and a profiler
+       window over 3 steps and over 3 teacher rollouts (device busy, idle
+       share, the teacher calls' share of the step's device time);
+   (d) one step at batch 2, kernels (B1-B4) against their plain versions
+       on the card: the loss and the gradients (Adam's first moment after
+       one update, pooled relative L2 < 1e-2);
+   (b) superdiff_torch.cli.sample of each student with no --method (the
+       stamp must resolve to trailing DDIM-N with clip_x0 off), graphed at
+       batch 16, finite; s4 also eagerly, bit for bit;
+   (c) superdiff_torch.cli.evaluate, classifier extractor, 64 samples, on
+       s4 by its stamp and on the teacher at DDIM-4 trailing: finite FIDs
+       (a check of the path after one epoch per phase, not of quality);
+10. a JSON line per kernel shape, the card line, the kernels line, and last
    the result line {"ok": true, "device": {...}}. The kernels line holds
    B1 at the path shapes, B2 / B3 (their launches from 5b), policy-mode
    B4 at the 18 chain shapes of wide256 (13 sizes, FiLM or not; the
@@ -171,7 +199,9 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    counted in 8c's cli.evaluate run). A B1/B4 row's
    `launches` is its main-path run's (4a, 6a) launches at that shape,
    run_launches of three counts taken in that run and printed beside it:
-   `wrapper_launches`, `captured_per_replay` and `graph_replays`.
+   `wrapper_launches`, `captured_per_replay` and `graph_replays`. B1-B3
+   and policy-mode B4 rows also carry `distill_launches`, their launches
+   at that shape in 9a's cli.distill run.
 
 float32 comparisons run with TF32 off (cudnn.allow_tf32=False, matmul
 precision "highest"); phase 6 turns cuDNN's TF32 back on, PyTorch's default.
@@ -258,6 +288,15 @@ SMALLCNN_SHAPES = [(16, 128, 128, 32), (16, 64, 64, 64), (16, 32, 32, 128),
 SMALLCNN_B4_TOL = 1e-4
 SMALLCNN_FEAT_TOL = 1e-4
 SMALLCNN_FID_TOL = 1e-3
+# phase 8a: the committed JPEG fixtures (copied into the tree as well)
+JPEG_FIXTURES = os.path.join(HERE, "tests", "torch_jpeg")
+# phase 9: progressive distillation of the tree-trained wide256 run; per
+# distillation step (conditional, batch 16): B1 8 per teacher call (2) and 8
+# in the student's forward; B2 / B3 8 in its backward; B4 51 per teacher
+# call and none in the student (its chains run under autograd)
+DISTILL_STEPS = (4, 2, 1)
+DISTILL_PER_STEP = (24, 8, 8, 2 * WIDE256_CALLS_B4)
+TEACHER_CALLS_PER_STEP = (16, 2 * WIDE256_CALLS_B4)    # (B1, B4)
 
 
 def log(msg):
@@ -685,13 +724,8 @@ def model_grad_check(fa, load_run, make_schedule, p_losses, run_dir):
     if flash_counts(fa) != (8, 8, 8):
         raise AssertionError(f"gradient check launched {flash_counts(fa)}, "
                              "expected (8, 8, 8)")
-    kernels = (fa._flash_forward_cuda, fa._flash_backward_cuda)
-    fa._flash_forward_cuda = fa._flash_forward_plain
-    fa._flash_backward_cuda = fa._flash_backward_plain
-    try:
+    with flash_swapped_for_plain(fa):
         loss_p, g_plain = grads()
-    finally:
-        fa._flash_forward_cuda, fa._flash_backward_cuda = kernels
     if flash_counts(fa) != (8, 8, 8):
         raise AssertionError("the plain-version pass launched a kernel")
     num = sum(((a.float() - b.float()) ** 2).sum() for a, b in
@@ -882,13 +916,9 @@ def phase_training(fa, fn, work, run1, tcfg, model_from_config, load_run,
         train_loss_by_epoch=[m["avg_loss"] for m in tr])
     log("phase 5c remat + grad_accum=2: " + json.dumps(out["remat_accum2"]))
     fa.reset_launches()
-    kernel_backward = fa._flash_backward_cuda
-    fa._flash_backward_cuda = math_backward
-    try:
+    with swapped(fa, _flash_backward_cuda=math_backward):
         _, m_math = run_train_cli(train_cli, work, "mathbwd", B, 2, 10,
                                   ["--set", "training.eval_every=0"])
-    finally:
-        fa._flash_backward_cuda = kernel_backward
     if flash_counts(fa) != (160, 0, 0):
         raise AssertionError(f"math-backward leg launched "
                              f"{flash_counts(fa)}, expected (160, 0, 0)")
@@ -1724,6 +1754,47 @@ def make_xray_tree(root, per_class, rng):
         return sum(pool.map(write, jobs))
 
 
+def add_jpeg_fixtures(flat):
+    """Copy each committed JPEG fixture into both classes of the flat tree
+    under new names, so that the splits, the decode epochs, training and
+    the native shard build decode JPEG too. Returns the number of copies."""
+    import shutil
+
+    with open(os.path.join(JPEG_FIXTURES, "manifest.json")) as f:
+        names = [e["name"] for e in json.load(f)["files"]]
+    for cls in ("NORMAL", "TB"):
+        for i, name in enumerate(names):
+            shutil.copyfile(os.path.join(JPEG_FIXTURES, name),
+                            os.path.join(flat, cls, f"{cls}_jpg_{i:02d}.jpg"))
+    return 2 * len(names)
+
+
+def jpeg_fixture_check(image_io):
+    """Decode every committed JPEG fixture (no PIL on this machine): shape
+    and SHA-256 of the gray bytes against the manifest, and ms per image
+    (mean of 5 decodes after one) by form."""
+    import hashlib
+
+    with open(os.path.join(JPEG_FIXTURES, "manifest.json")) as f:
+        entries = json.load(f)["files"]
+    rows = {}
+    for e in entries:
+        path = os.path.join(JPEG_FIXTURES, e["name"])
+        img = image_io.read_gray(path)
+        digest = hashlib.sha256(img.tobytes()).hexdigest()
+        if list(img.shape) != e["shape"] or digest != e["sha256"]:
+            raise AssertionError(f"JPEG fixture {e['name']}: shape "
+                                 f"{img.shape}, sha256 {digest}; manifest "
+                                 f"{e['shape']} {e['sha256']}")
+        tic = time.perf_counter()
+        for _ in range(5):
+            image_io.read_gray(path)
+        rows[e["form"]] = dict(file=e["name"], shape=e["shape"],
+                               ms=(time.perf_counter() - tic) * 200,
+                               sha256_matches=True)
+    return rows
+
+
 def trace_idle_share(path):
     """Device busy ms and idle share of a torch.profiler chrome trace:
     the union of kernel, memcpy and memset intervals against the span of
@@ -1770,11 +1841,23 @@ def phase_data_eval(fa, fn, work, card_line):
     tic = time.time()
     flat, root = os.path.join(work, "xray_flat"), os.path.join(work, "xray")
     nbytes = make_xray_tree(flat, TREE_PER_CLASS, rng)
+    n_jpeg = add_jpeg_fixtures(flat)
     counts = split_dataset(flat, os.path.join(root, "TB"))
-    out["tree"] = dict(images=2 * TREE_PER_CLASS, mb=nbytes / 1e6,
+    jpeg_by_split = {sp: sum(n.endswith(".jpg") for cls in ("NORMAL", "TB")
+                             for n in os.listdir(os.path.join(root, "TB", sp,
+                                                              cls)))
+                     for sp in ("train", "val", "test")}
+    out["tree"] = dict(images=2 * TREE_PER_CLASS + n_jpeg, png=2 *
+                       TREE_PER_CLASS, jpeg=n_jpeg,
+                       jpeg_by_split=jpeg_by_split, mb=nbytes / 1e6,
                        split=counts, write_s=time.time() - tic)
+    if not jpeg_by_split["train"]:
+        raise AssertionError("no JPEG landed in the train split")
     if image_io.unfilter_backend() != "native":
         raise AssertionError("PNG rows are not unfiltered by the C++ library")
+    out["jpeg_fixtures"] = jpeg_fixture_check(image_io)
+    log(f"phase 8a JPEG fixtures decoded without PIL, hashes match "
+        f"({card_line}): " + json.dumps(out["jpeg_fixtures"]))
     files = sorted(os.path.join(flat, "NORMAL", n)
                    for n in os.listdir(os.path.join(flat, "NORMAL")))
     by_size = {}
@@ -2054,20 +2137,328 @@ def phase_data_eval(fa, fn, work, card_line):
     log(f"phase 8d SmallCNN B4 vs plain chain ({card_line}): "
         + json.dumps({k: v for k, v in out["smallcnn_b4"].items()
                       if k != "rows"}))
-    return out, rows, eval_b4
+    return out, rows, eval_b4, (tree_run, root)
+
+
+def distill_counts(fa, fn):
+    """(B1, B2, B3, B4) launches through the wrappers since the reset."""
+    return flash_counts(fa) + (fn.launches,)
+
+
+def phase_distill(fa, fn, work, card_line, tree_run, root):
+    """The distillation slice (phase 9 of the module docstring)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from superdiff_torch.cli import distill as distill_cli
+    from superdiff_torch.cli import evaluate as evaluate_cli
+    from superdiff_torch.cli import export as export_cli
+    from superdiff_torch.cli import sample
+    from superdiff_torch.config import load_config
+    from superdiff_torch.data import DataModule
+    from superdiff_torch.diffusion import graphed
+    from superdiff_torch.diffusion.distill import make_distill_step
+    from superdiff_torch.diffusion.graphed import WARMUP_STEPS
+    from superdiff_torch.inference import (load_run, make_eps_fn_p,
+                                           resolve_sampler_spec)
+    from superdiff_torch.models.presets import model_from_config
+    from superdiff_torch.training.loop import _uint8_batch
+    from superdiff_torch.training.state import (create_train_state,
+                                                make_optimizer)
+
+    out = {"card": card_line}
+    teacher_dir = os.path.join(work, "tree_export")
+    base = os.path.join(work, "distill")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        if export_cli.main(["--run-dir", tree_run, "--out", teacher_dir,
+                            "--device", "cuda"]):
+            raise AssertionError("cli.export of the tree run failed")
+
+    # (a) cli.distill on the tree: 4 -> 2 -> 1 steps, one epoch per phase,
+    # batch 16; launches counted over the whole run
+    fa.reset_launches()
+    fn.reset_launches()
+    tic = time.time()
+    with contextlib.redirect_stdout(buf):
+        rc = distill_cli.main([
+            "--run-dir", teacher_dir, "--dataset-root", root, "--steps",
+            ",".join(map(str, DISTILL_STEPS)), "--phase-epochs", "1",
+            "--batch-size", "16", "--out", base, "--device", "cuda"])
+    if rc != 0:
+        raise AssertionError(f"cli.distill returned {rc}")
+    cli_s = time.time() - tic
+    with open(os.path.join(base, "summary.json")) as f:
+        summary = json.load(f)
+    steps = sum(p["steps"] for p in summary["phases"])
+    counts = distill_counts(fa, fn)
+    expect = tuple(n * steps for n in DISTILL_PER_STEP)
+    if counts != expect:
+        raise AssertionError(f"cli.distill launched (B1, B2, B3, B4) = "
+                             f"{counts} over {steps} steps, expected "
+                             f"{expect}")
+    launches = dict(fwd=dict(fa.launches_by_shape),
+                    dq=dict(fa.bwd_dq_launches_by_shape),
+                    dkv=dict(fa.bwd_dkv_launches_by_shape),
+                    b4=dict(fn.launches_by_shape))
+    for p in summary["phases"]:
+        if not np.isfinite([p["first_loss"], p["last_loss"]]).all():
+            raise AssertionError(f"distillation phase {p}: loss not finite")
+    out["cli"] = dict(
+        seconds=cli_s, steps=steps, steps_per_phase=summary["steps_per_epoch"],
+        launches_per_step=dict(zip(("B1", "B2", "B3", "B4"),
+                                   (n // steps for n in counts))),
+        phases=[{k: v for k, v in p.items() if k != "out"}
+                for p in summary["phases"]])
+    log(f"phase 9a cli.distill wide256 256² batch 16 on the tree, steps "
+        f"{DISTILL_STEPS} ({card_line}): " + json.dumps(out["cli"]))
+
+    # a distillation step alone, as cli.distill's first phase builds it, on
+    # one batch of the tree: launches of a step and of the teacher's two
+    # calls alone, CUDA-event ms, and a profiler window over 3 steps and
+    # over 3 teacher rollouts (device busy, idle share, teacher share)
+    cfg, teacher, schedule = load_run(teacher_dir, device="cuda")
+    teacher.requires_grad_(False)
+    s_cfg = copy.deepcopy(cfg)
+    s_cfg.model.parameterization = "v"
+    s_cfg.training.batch_size = 16
+    tfn = make_eps_fn_p(teacher, "per_sample", schedule=schedule)
+
+    def fresh_state():
+        student = model_from_config(s_cfg, device="cuda")
+        student.load_state_dict(teacher.state_dict())
+        return create_train_state(
+            student, torch.Generator(device="cuda").manual_seed(0),
+            tx=make_optimizer(learning_rate=1e-4),
+            ema_decay=cfg.training.ema_decay)
+
+    step_fn = make_distill_step(
+        schedule, tfn, DISTILL_STEPS[0], conditional=True,
+        parameterization="v", null_prob=0.5, null_label=teacher.null_label,
+        normalization=cfg.training.normalization, clip_x0=True)
+    batch = _uint8_batch(next(iter(DataModule(s_cfg, root).iterator(
+        "train", epoch=0))), "cuda")
+    state = fresh_state()
+    x0 = batch["image"].float() / 127.5 - 1.0
+    t_hi = torch.full((16,), schedule.num_timesteps - 1, device="cuda")
+    t_mid = torch.full((16,), schedule.num_timesteps // 2, device="cuda")
+
+    def step():
+        step_fn(state, teacher, batch)
+
+    def teacher_rollout():
+        with torch.no_grad():
+            tfn(teacher, x0, t_hi, batch["label"])
+            tfn(teacher, x0, t_mid, batch["label"])
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    fn.reset_launches()
+    step()
+    torch.cuda.synchronize()
+    per_step = distill_counts(fa, fn)
+    fa.reset_launches()
+    fn.reset_launches()
+    teacher_rollout()
+    torch.cuda.synchronize()
+    per_teacher = (fa.launches, fn.launches)
+    if (per_step != DISTILL_PER_STEP
+            or per_teacher != TEACHER_CALLS_PER_STEP):
+        raise AssertionError(f"a distillation step launched (B1, B2, B3, B4)"
+                             f" = {per_step} (expected {DISTILL_PER_STEP}); "
+                             f"its teacher calls (B1, B4) = {per_teacher} "
+                             f"(expected {TEACHER_CALLS_PER_STEP})")
+    step_ms = cuda_time_ms(step, 5, warmup=1)
+    teacher_ms = cuda_time_ms(teacher_rollout, 5, warmup=1)
+    from torch.profiler import ProfilerActivity, profile
+    windows = {}
+    for name, fn_ in (("step", step), ("teacher", teacher_rollout)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn_()
+            torch.cuda.synchronize()
+        path = os.path.join(work, f"distill_{name}_trace.json")
+        prof.export_chrome_trace(path)
+        windows[name] = trace_idle_share(path)
+    busy, idle = windows["step"]
+    t_busy = windows["teacher"][0]
+    out["step"] = dict(
+        batch=16, ms_per_step_events=step_ms,
+        teacher_two_calls_ms_events=teacher_ms,
+        device_busy_ms_per_step=(busy / 3 if isinstance(busy, float)
+                                 else busy),
+        device_idle_share=idle,
+        teacher_device_busy_ms_per_step=(t_busy / 3 if isinstance(
+            t_busy, float) else t_busy),
+        teacher_share_of_device_busy=(
+            t_busy / busy if isinstance(busy, float)
+            and isinstance(t_busy, float) else "not measured"),
+        launches_per_step=dict(zip(("B1", "B2", "B3", "B4"), per_step)),
+        teacher_launches_per_step=dict(zip(("B1", "B4"), per_teacher)),
+        student_launches_per_step=dict(
+            B1=per_step[0] - per_teacher[0], B2=per_step[1],
+            B3=per_step[2], B4=per_step[3] - per_teacher[1]),
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"phase 9a distillation step alone ({card_line}): "
+        + json.dumps(out["step"]))
+    del state
+
+    # (d) one step at batch 2, kernels against their plain versions: the
+    # loss, and the gradients through Adam's first moment (mu = 0.1 g after
+    # one update from zero), pooled relative L2
+    g = torch.Generator(device="cuda").manual_seed(9)
+    draws = {"drop": torch.tensor([False, True], device="cuda"),
+             "i": torch.tensor([0, DISTILL_STEPS[0] - 1], device="cuda"),
+             "noise": torch.randn((2, 256, 256, 1), generator=g,
+                                  device="cuda")}
+    small = {k: v[:2] for k, v in batch.items()}
+    res = {}
+    for tag in ("kernels", "plain"):
+        st = fresh_state()
+        fa.reset_launches()
+        fn.reset_launches()
+        with contextlib.ExitStack() as plain:
+            if tag == "plain":
+                plain.enter_context(flash_swapped_for_plain(fa))
+                plain.enter_context(b4_policy_swapped_for_plain(fn))
+            _, m = step_fn(st, teacher, small, draws)
+        torch.cuda.synchronize()
+        res[tag] = (m["loss"].item(), [a.float() for a in
+                                       st.opt_state["mu"]],
+                    distill_counts(fa, fn))
+        del st
+    if res["kernels"][2] != DISTILL_PER_STEP or res["plain"][2] != (0,) * 4:
+        raise AssertionError(f"kernel / plain passes launched "
+                             f"{res['kernels'][2]} / {res['plain'][2]}")
+    (loss_k, mu_k, _), (loss_p, mu_p, _) = res["kernels"], res["plain"]
+    rel = (sum(((a - b) ** 2).sum() for a, b in zip(mu_k, mu_p)).sqrt()
+           / sum((b ** 2).sum() for b in mu_p).sqrt()).item()
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    if not (rel < GRAD_REL_TOL and loss_rel < GRAD_REL_TOL):
+        raise AssertionError(f"distillation step, kernels vs plain: "
+                             f"gradients rel L2 {rel:.4e}, loss rel "
+                             f"{loss_rel:.4e} (tolerance {GRAD_REL_TOL})")
+    out["kernels_vs_plain"] = dict(batch=2, loss_kernels=loss_k,
+                                   loss_plain=loss_p, loss_rel=loss_rel,
+                                   grad_rel_l2=rel, tolerance=GRAD_REL_TOL)
+    log("phase 9d distillation step at batch 2, kernels vs plain: "
+        + json.dumps(out["kernels_vs_plain"]))
+    del teacher
+
+    # (b) cli.sample of each student, no --method: the stamp picks trailing
+    # DDIM-N with clip_x0 off; graphed at batch 16; s4 also eagerly (the
+    # same bits)
+    samples = {}
+    for n in DISTILL_STEPS:
+        sdir = os.path.join(base, f"s{n}")
+        spec = resolve_sampler_spec(load_config(os.path.join(sdir,
+                                                             "config.yaml")))
+        if spec != ("ddim", n, "trailing", False):
+            raise AssertionError(f"student s{n} resolves to {spec}")
+        out_dir = os.path.join(work, f"distill_s{n}")
+        argv = ["--run-dir", sdir, "--batch-size", "16", "--seed", "3",
+                "--out", out_dir, "--device", "cuda"]
+        if n == DISTILL_STEPS[0]:
+            row, _, c = sample_pair(sample, argv, f"student s{n}")
+            c = c["graph"]
+        else:
+            fa.reset_launches()
+            fn.reset_launches()
+            graphed.reset_counts()
+            secs, cap = run_cli(sample, argv)
+            x = np.load(os.path.join(out_dir, "samples.npy"))
+            if x.shape != (16, 256, 256, 1) or not np.isfinite(x).all():
+                raise AssertionError(f"student s{n} samples {x.shape}, "
+                                     "finite or not")
+            row = dict(graph=dict(s_per_batch=secs, capture_s=cap))
+            c = dict(b1=fa.launches, b4=fn.launches,
+                     replays=graphed.replays)
+        if c["replays"] != n:
+            raise AssertionError(f"student s{n}: {c['replays']} replays")
+        check_launches(c["b1"], WARMUP_STEPS + 1, f"student s{n} graph")
+        check_b4(c["b4"], WARMUP_STEPS + 1, f"student s{n} graph")
+        row["sampler"] = list(spec)
+        samples[f"s{n}"] = row
+    out["sample"] = samples
+    log(f"phase 9b cli.sample of each student, batch 16 ({card_line}): "
+        + json.dumps(samples))
+
+    # (c) cli.evaluate, classifier extractor, 64 samples: s4 by its stamp
+    # and the teacher at DDIM-4 trailing (its own clip policy)
+    cls_npz = os.path.join(HERE, "artifacts", "extractors",
+                           "smallcnn_trained_256.npz")
+    evals = {}
+    for tag, run, extra in (
+            ("s4", os.path.join(base, "s4"), []),
+            ("teacher_ddim4_trailing", teacher_dir,
+             ["--method", "ddim", "--num-steps", "4", "--spacing",
+              "trailing"])):
+        record = {}
+        path = os.path.join(work, f"eval_{tag}.json")
+        with contextlib.redirect_stdout(buf):
+            rc = evaluate_cli.main([
+                "--run-dir", run, "--dataset-root", root, "--num-samples",
+                "64", "--batch-size", "16", "--extractor", "classifier",
+                "--extractor-checkpoint", cls_npz, "--out", path,
+                "--device", "cuda", *extra], record=record)
+        if rc != 0:
+            raise AssertionError(f"cli.evaluate ({tag}) returned {rc}")
+        with open(path) as f:
+            results = json.load(f)
+        fid = results["fid_by_extractor"]["classifier"]
+        if not np.isfinite(fid) or (results["sampler"],
+                                    results["sampler_steps"]) != ("ddim", 4):
+            raise AssertionError(f"cli.evaluate ({tag}): {results}")
+        evals[tag] = dict(fid_classifier=fid, sample_s=record["sample_s"],
+                          extract_s=record["extract_s"]["classifier"])
+    out["evaluate"] = evals
+    log(f"phase 9c cli.evaluate, classifier FID, 64 samples ({card_line}): "
+        + json.dumps(evals))
+    return out, launches
 
 
 @contextlib.contextmanager
-def b4_swapped_for_plain(fn):
-    """B4's wrapper runs the plain version on CUDA tensors inside the block
-    (the package has no such switch), for the kernel-vs-plain checks."""
-    kernel = fn._gn_silu_cuda
-    fn._gn_silu_cuda = (lambda x, gamma, beta, G, scale, shift, eps:
-                        fn.gn_silu_plain(x, gamma, beta, G, scale, shift, eps))
+def swapped(obj, **attrs):
+    """Set attributes of ``obj`` (a module of the package) inside the block
+    and restore them after. The package has no switch from a kernel to its
+    plain version on CUDA tensors, so the kernel-vs-plain checks set the
+    wrapper's private launcher here, and only here."""
+    saved = {k: getattr(obj, k) for k in attrs}
+    for k, v in attrs.items():
+        setattr(obj, k, v)
     try:
         yield
     finally:
-        fn._gn_silu_cuda = kernel
+        for k, v in saved.items():
+            setattr(obj, k, v)
+
+
+def flash_swapped_for_plain(fa):
+    """B1, B2 and B3 run their plain versions inside the block."""
+    return swapped(fa, _flash_forward_cuda=fa._flash_forward_plain,
+                   _flash_backward_cuda=fa._flash_backward_plain)
+
+
+def b4_swapped_for_plain(fn):
+    """B4's wrapper runs its plain version inside the block."""
+    return swapped(fn, _gn_silu_cuda=(
+        lambda x, gamma, beta, G, scale, shift, eps:
+        fn.gn_silu_plain(x, gamma, beta, G, scale, shift, eps)))
+
+
+def b4_policy_swapped_for_plain(fn):
+    """B4 in the sampling policy's mode (the CondUNet's chains with their
+    bf16 roundings) runs its plain version inside the block."""
+    return swapped(fn, gn_film_silu_policy=(
+        lambda x, gamma, beta, G, nd, scale=None, shift=None, eps=1e-5:
+        fn.gn_film_silu_policy_plain(x, gamma, beta, G, nd, scale, shift,
+                                     eps)))
 
 
 @contextlib.contextmanager
@@ -2319,8 +2710,14 @@ def main() -> int:
     # (8) the data layer and evaluation: cli.train on a PNG tree, then
     # cli.evaluate's FIDs, under PyTorch's default cuDNN TF32 (a user's run)
     with tf32(True):
-        data_eval, smallcnn_rows, eval_b4 = phase_data_eval(fa, fn, work,
-                                                            card_line)
+        data_eval, smallcnn_rows, eval_b4, (tree_run, root) = \
+            phase_data_eval(fa, fn, work, card_line)
+
+    # (9) progressive distillation of the tree-trained run (cli.distill),
+    # its students sampled and evaluated, under PyTorch's default TF32
+    with tf32(True):
+        distill, distill_launches = phase_distill(fa, fn, work, card_line,
+                                                  tree_run, root)
 
     summary = dict(card=card_line, build_s=build_s, training=training_out,
                    ddpm1000_batch16=ddpm, graph_steps=graph_rows,
@@ -2328,7 +2725,8 @@ def main() -> int:
                    slice_rel_l2_bf16_vs_f32=rel, superdiff=superdiff,
                    profiles=profiles, wide256_norm_chains=chains,
                    ref_slice=ref_out, serving=serving,
-                   data_eval=data_eval, total_s=time.time() - t_start)
+                   data_eval=data_eval, distill=distill,
+                   total_s=time.time() - t_start)
     log("slice " + json.dumps(summary))
 
     kernels = []
@@ -2345,6 +2743,8 @@ def main() -> int:
             graph_replays=main_counts["replays"],
             eager_launches=eager_launches.get((S, D, "bfloat16"), 0),
             train_launches=train_launches["fwd"].get((S, D, "bfloat16"), 0),
+            distill_launches=distill_launches["fwd"].get((S, D, "bfloat16"),
+                                                         0),
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             kernel_device_ms=row["kernel_device_ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
@@ -2362,6 +2762,8 @@ def main() -> int:
                 name=f"{name}[bf16 B{B} S{S} H{H} D{D}]", route="cuda",
                 source=BWD_SRC, replaces=replaces,
                 launches=train_launches[kern].get((S, D, "bfloat16"), 0),
+                distill_launches=distill_launches[kern].get(
+                    (S, D, "bfloat16"), 0),
                 max_abs_err=row["max_abs_err"], ms=row["ms"],
                 kernel_device_ms=row["kernel_device_ms"],
                 plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
@@ -2383,6 +2785,7 @@ def main() -> int:
             wrapper_launches=main_counts["b4_by_shape"].get(key, 0),
             captured_per_replay=main_counts["b4_captured"].get(key, 0),
             graph_replays=main_counts["replays"],
+            distill_launches=distill_launches["b4"].get(key, 0),
             launches_per_call=row["launches_per_call"],
             regime=picked["geometry"]["regime"],
             max_abs_err=picked["max_abs_err"], max_ulps=picked["max_ulps"],

@@ -4,9 +4,9 @@ Port of ``superdiff_tpu/data/dataset.py``. Layout:
 ``root/TASK/split/CLASS_NAME/*.{jpg,jpeg,png,bmp}``, classes sorted
 alphabetically -> indices, optional ``class_filter`` keeping one class.
 
-The host decodes (``data/image_io.py``: PNG and BMP without PIL), applies
-the resize strategy and optional CLAHE (``data/transforms.py``) and stacks
-uint8 batches; normalization and augmentation run on the device
+The host decodes (``data/image_io.py``: PNG, BMP and JPEG without PIL),
+applies the resize strategy and optional CLAHE (``data/transforms.py``) and
+stacks uint8 batches; normalization and augmentation run on the device
 (``prepare_batch``). The batches equal the JAX package's bit for bit, in
 the same order.
 """

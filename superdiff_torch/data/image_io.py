@@ -12,8 +12,12 @@ its own copy of those operations, held against PIL by the CPU tests:
   RGB through the fixed-point luma ``(19595 R + 38470 G + 7471 B + 0x8000)
   >> 16``, a palette through the luma of its entries, alpha dropped, 16-bit
   samples of colour images by their high byte and 16-bit grayscale
-  **clipped at 255** (PIL's ``I;16`` -> ``L``). JPEG goes through PIL where
-  PIL can be imported, and raises otherwise.
+  **clipped at 255** (PIL's ``I;16`` -> ``L``). JPEG (baseline, extended
+  sequential and progressive Huffman at 8 bits, gray or 3 components, chroma
+  subsampled up to 2:1 each way, restart intervals) is decoded by
+  ``csrc/jpeg_decode.cpp`` to the samples PIL's libjpeg-turbo gives (ISLOW
+  IDCT, fancy upsampling, fixed-point YCbCr->RGB), then the same luma; other
+  JPEG forms raise ``ValueError`` naming the form. PIL is never imported.
 - :func:`resize_u8`: ``Image.resize`` of a mode ``L`` image with the
   ``BILINEAR`` or ``BICUBIC`` filter: PIL's separable resampling with
   coefficients normalised in double and rounded to 22-bit fixed point,
@@ -23,7 +27,8 @@ its own copy of those operations, held against PIL by the CPU tests:
 The Average and Paeth row filters are sequential along a row; the row
 unfilter runs in ``csrc/png_unfilter.cpp`` (built by ``g++`` at first use,
 ``ops/_build.py::build_host``), with :func:`unfilter_plain` as its plain
-version, used where the library cannot be built.
+version, used where the library cannot be built. The JPEG decoder has no
+such fallback: where it cannot be built, decoding a JPEG raises.
 """
 
 from __future__ import annotations
@@ -226,27 +231,70 @@ def decode_bmp(data: bytes) -> np.ndarray:
     return _luma(pal[rows[:, :w]])
 
 
+# --------------------------------------------------------------- JPEG ------
+
+JPEG_SOI = b"\xff\xd8"
+_ERRLEN = 256
+
+
+def _jpeg_lib():
+    """The JPEG decoder library, built at first use (raises when g++
+    cannot build it)."""
+    from superdiff_torch.ops import _build
+
+    u8p, i64 = ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64
+    return _build.load("jpeg", {
+        "superdiff_jpeg_header": [u8p, i64, ctypes.POINTER(i64),
+                                  ctypes.c_char_p, i64],
+        "superdiff_jpeg_decode": [u8p, i64, u8p, i64, ctypes.c_char_p,
+                                  i64]})
+
+
+def decode_jpeg_samples(data: bytes) -> np.ndarray:
+    """A JPEG file's bytes -> libjpeg's output samples: ``(H, W)`` for a
+    gray file, ``(H, W, 3)`` RGB for a colour one. Raises ``ValueError``
+    naming the form for files outside the forms listed in the module
+    docstring, and for truncated or corrupt data."""
+    lib = _jpeg_lib()
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    src = np.frombuffer(data, dtype=np.uint8)
+    ptr = src.ctypes.data_as(u8p)
+    err = ctypes.create_string_buffer(_ERRLEN)
+    dims = (ctypes.c_int64 * 3)()
+    if lib.superdiff_jpeg_header(ptr, src.size, dims, err, _ERRLEN):
+        raise ValueError(f"JPEG: {err.value.decode()}")
+    h, w, c = dims
+    out = np.empty((h, w, c), dtype=np.uint8)
+    if lib.superdiff_jpeg_decode(ptr, src.size, out.ctypes.data_as(u8p),
+                                 out.size, err, _ERRLEN):
+        raise ValueError(f"JPEG: {err.value.decode()}")
+    return out[..., 0] if c == 1 else out
+
+
+def decode_jpeg(data: bytes) -> np.ndarray:
+    """A JPEG file's bytes -> its ``convert("L")`` as a ``(H, W)`` uint8
+    array: the decoded gray samples, or PIL's luma of the RGB ones."""
+    px = decode_jpeg_samples(data)
+    return px if px.ndim == 2 else _luma(px)
+
+
 # -------------------------------------------------------------- reading ----
 
 def read_gray(path: str) -> np.ndarray:
-    """Decode an image file to grayscale uint8 ``(H, W)``, as
-    ``PIL.Image.open(path).convert("L")`` does."""
+    """Decode an image file (PNG, BMP or JPEG) to grayscale uint8 ``(H,
+    W)``, as ``PIL.Image.open(path).convert("L")`` does."""
     with open(path, "rb") as f:
         data = f.read()
     if data.startswith(PNG_SIGNATURE):
         return decode_png(data)
     if data[:2] == b"BM":
         return decode_bmp(data)
-    try:
-        from PIL import Image
-    except ImportError:
-        raise RuntimeError(
-            f"{path}: not a PNG or BMP file, and PIL is not installed to "
-            "decode it. Convert the tree to PNG, or build the .xrc shard "
-            "(data/native_loader.py::build_shard_from_index) on a machine "
-            "with PIL and copy it under <dataset root>/.shards/") from None
-    with Image.open(path) as im:
-        return np.asarray(im.convert("L"), dtype=np.uint8)
+    if data.startswith(JPEG_SOI):
+        try:
+            return decode_jpeg(data)
+        except ValueError as e:
+            raise ValueError(f"{path}: {e}") from None
+    raise ValueError(f"{path}: not a PNG, BMP or JPEG file")
 
 
 # ----------------------------------------------------------- resampling ----

@@ -7,8 +7,9 @@ source and the flags) and bound with ``ctypes``. Each exported C function
 returns the CUDA error code of its launches (0 on success).
 
 The host libraries of the data layer (``HOST_SOURCES``: the shard cache
-``native/xraycache.cpp``, shared with the JAX package, and the PNG row
-unfilter ``csrc/png_unfilter.cpp``) are compiled the same way with ``g++``
+``native/xraycache.cpp``, shared with the JAX package, the PNG row
+unfilter ``csrc/png_unfilter.cpp`` and the JPEG decoder
+``csrc/jpeg_decode.cpp``) are compiled the same way with ``g++``
 into the same directory; nothing is written beside their sources.
 """
 
@@ -30,7 +31,8 @@ SOURCES = {"fwd": _CSRC / "flash_attn_fwd.cu",
            "gn": _CSRC / "group_norm_silu.cu"}
 _REPO = Path(__file__).resolve().parents[2]
 HOST_SOURCES = {"xraycache": _REPO / "native" / "xraycache.cpp",
-                "png": _CSRC / "png_unfilter.cpp"}
+                "png": _CSRC / "png_unfilter.cpp",
+                "jpeg": _CSRC / "jpeg_decode.cpp"}
 _BUILD_DIR = _REPO / "build" / "superdiff_torch"
 GXX_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-pthread", "-shared")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -266,14 +266,14 @@ def test_train_state_round_trip_through_numpy():
 
 def test_port_imports_without_jax(tmp_path):
     """Every superdiff_torch module (and chip_smoke.py) imports, and the toy
-    CondUNet runs on CPU, with jax, flax, optax, orbax and superdiff_tpu
-    blocked; the training, checkpoint, CLI, group-norm, reference-import,
-    serving, graphed-sampler, data-layer and evaluation modules are among
-    them."""
+    CondUNet runs on CPU, with jax, flax, optax, orbax, superdiff_tpu and
+    PIL blocked; the training, checkpoint, CLI, group-norm, reference-import,
+    serving, graphed-sampler, data-layer, evaluation and distillation
+    modules are among them."""
     script = textwrap.dedent(f"""
         import importlib, pkgutil, sys
         BLOCK = ("jax", "jaxlib", "flax", "optax", "orbax", "superdiff_tpu",
-                 "ml_dtypes", "yaml")
+                 "ml_dtypes", "yaml", "PIL")
         class Blocker:
             def find_spec(self, name, path=None, target=None):
                 if name.split(".")[0] in BLOCK:
@@ -309,7 +309,8 @@ def test_port_imports_without_jax(tmp_path):
                   "data.split", "data.native_loader", "data.datamodule",
                   "analysis.features", "analysis.resnet",
                   "analysis.densenet", "analysis.classifier",
-                  "analysis.fid", "cli.evaluate"):
+                  "analysis.fid", "cli.evaluate", "diffusion.distill",
+                  "cli.distill"):
             assert "superdiff_torch." + m in mods, m
         bad = [n for n in sys.modules if n.split(".")[0] in BLOCK]
         assert not bad, bad

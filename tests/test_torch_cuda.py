@@ -759,3 +759,75 @@ def test_native_loader_feeds_a_train_step_on_card(cuda, tmp_path):
         assert torch.isfinite(m["loss"]).item()
         n += 1
     assert n == len(it) > 0 and state.step == n
+
+
+@pytest.mark.cuda
+def test_distill_step_launches_on_card(cuda):
+    """One distillation step of a small conditional CondUNet (bf16 compute
+    and norms): the teacher's two calls under no_grad launch B1 and B4 as
+    two sampling calls do, the student's forward B1 once per attention
+    layer and its backward B2 and B3 as often, and its chains no B4 (they
+    run under autograd); the loss is finite."""
+    from superdiff_torch.diffusion import make_schedule
+    from superdiff_torch.diffusion.distill import make_distill_step
+    from superdiff_torch.inference import make_eps_fn_p
+    from superdiff_torch.models.unet import CondUNet
+    from superdiff_torch.training.state import create_train_state
+
+    kw = dict(resolution=16, base_channels=32, channel_mults=(1, 2),
+              num_res_blocks=1, attn_resolutions=(8,), num_heads=2,
+              num_classes=2, time_emb_dim=32, groups=8,
+              compute_dtype=torch.bfloat16, norm_dtype=torch.bfloat16,
+              device=cuda)
+    teacher = CondUNet(**kw).init_parameters(0).eval().requires_grad_(False)
+    student = CondUNet(**kw, parameterization="v")
+    student.load_state_dict(teacher.state_dict())
+    sched = make_schedule(40, device=cuda)
+    tfn = make_eps_fn_p(teacher, "per_sample", schedule=sched)
+    x = torch.randn((4, 16, 16, 1), device=cuda)
+    t = torch.full((4,), 30, device=cuda)
+    y = torch.tensor([0, 1, 2, 0], device=cuda)
+    fa.reset_launches()
+    fn.reset_launches()
+    with torch.no_grad():
+        tfn(teacher, x, t, y)
+    torch.cuda.synchronize()
+    b1_call, b4_call = fa.launches, fn.launches
+    assert b1_call > 0 and b4_call > 0
+    state = create_train_state(student, torch.Generator(device=cuda)
+                               .manual_seed(0))
+    step = make_distill_step(sched, tfn, 2, conditional=True,
+                             parameterization="v", null_prob=0.5,
+                             null_label=teacher.null_label)
+    batch = {"image": torch.randint(0, 256, (4, 16, 16, 1), device=cuda,
+                                    dtype=torch.uint8),
+             "label": torch.tensor([0, 1, 1, 0], device=cuda)}
+    fa.reset_launches()
+    fn.reset_launches()
+    state, m = step(state, teacher, batch)
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.bwd_dq_launches, fa.bwd_dkv_launches,
+            fn.launches) == (3 * b1_call, b1_call, b1_call, 2 * b4_call)
+    assert torch.isfinite(m["loss"]).item() and state.step == 1
+
+
+@pytest.mark.cuda
+def test_jpeg_fixtures_decode_to_the_manifest_on_card(cuda):
+    """On the card's machine (no PIL there) every committed JPEG fixture
+    decodes to the shape and SHA-256 of PIL's bits in the manifest."""
+    import hashlib
+    import json
+    import os
+
+    from superdiff_torch.data import image_io
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "torch_jpeg")
+    with open(os.path.join(root, "manifest.json")) as f:
+        entries = json.load(f)["files"]
+    assert entries
+    for e in entries:
+        img = image_io.read_gray(os.path.join(root, e["name"]))
+        assert list(img.shape) == e["shape"], e["name"]
+        assert hashlib.sha256(img.tobytes()).hexdigest() == e["sha256"], \
+            e["name"]

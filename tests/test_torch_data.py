@@ -152,9 +152,9 @@ def test_adam7_and_unknown_formats_raise(tmp_path, monkeypatch):
     with Image.open(jpg) as im:
         expect = np.asarray(im.convert("L"))
     np.testing.assert_array_equal(image_io.read_gray(str(jpg)), expect)
+    # the JPEG decoder is the port's own: PIL's bits without PIL
     monkeypatch.setitem(sys.modules, "PIL", None)
-    with pytest.raises(RuntimeError, match="x.jpg.*Convert the tree to PNG"):
-        image_io.read_gray(str(jpg))
+    np.testing.assert_array_equal(image_io.read_gray(str(jpg)), expect)
 
 
 @pytest.mark.parametrize("strategy", ["pad", "center_crop", "resize"])
