@@ -90,3 +90,16 @@ def densenet121_features(params: Dict, x: torch.Tensor) -> torch.Tensor:
     3x3/2 max pool, four dense blocks with 2x2 average-pool transitions,
     ``relu(norm5)``, global average pool."""
     return densenet121_feature_map(params, x).mean(dim=(1, 2))
+
+
+def densenet121_logits(params: Dict, feature_map: torch.Tensor
+                       ) -> torch.Tensor:
+    """The classifier head on a ``relu(norm5)`` feature map ``(B, h, w,
+    1024)``: the global average pool, then ``classifier``. Needs a
+    checkpoint converted with its ``classifier`` head."""
+    if "classifier" not in params:
+        raise KeyError("checkpoint was converted without its classifier "
+                       "head — Grad-CAM needs the logits")
+    pooled = feature_map.mean(dim=(1, 2))
+    return (pooled @ params["classifier"]["weight"].T
+            + params["classifier"]["bias"])

@@ -121,3 +121,14 @@ def resnet18_features(params: Dict, x: torch.Tensor) -> torch.Tensor:
     """``(B, H, W, 1) -> (B, 512)`` pooled features (pre-fc): 7x7/2 stem,
     3x3/2 max pool, four 2-block stages, global average pool."""
     return resnet18_feature_map(params, x).mean(dim=(1, 2))
+
+
+def resnet18_logits(params: Dict, feature_map: torch.Tensor) -> torch.Tensor:
+    """The classifier head on a layer4 feature map ``(B, h, w, 512)``: the
+    global average pool, then ``fc``. Needs a checkpoint converted with its
+    ``fc`` (``convert_torch_resnet18`` keeps it when present)."""
+    if "fc" not in params:
+        raise KeyError("checkpoint was converted without its fc head — "
+                       "Grad-CAM needs the classifier logits")
+    pooled = feature_map.mean(dim=(1, 2))
+    return pooled @ params["fc"]["weight"].T + params["fc"]["bias"]

@@ -5,17 +5,18 @@
 //
 // Forms decoded: baseline (SOF0) and extended sequential (SOF1) Huffman at 8
 // bits, progressive (SOF2) Huffman including successive approximation, with
-// or without restart intervals (DRI / RSTn); 1 component (gray) or 3
-// (YCbCr, or RGB under an Adobe APP14 marker with transform 0 or component
-// ids 'R','G','B'); each component's sampling factor equal to the largest or
-// half of it in each direction. Anything else is refused with a message that
-// names the form: arithmetic coding (SOF9-11, DAC), lossless (SOF3),
-// hierarchical (SOF5-7, SOF13-15), 12-bit samples, 2 or 4 components
-// (CMYK / YCCK), other sampling factors, progressive scans that leave
-// coefficients unrefined (libjpeg would block-smooth them) and truncated
-// data. Corrupt data are refused where libjpeg refuses them (an over-full
-// Huffman table, a DC symbol above 15, a DC sum outside int) and before any
-// write they could send out of bounds. A sequential frame whose later scans
+// or without restart intervals (DRI / RSTn); 1 component (gray), 3 (YCbCr,
+// or RGB under an Adobe APP14 marker with transform 0 or component ids
+// 'R','G','B') or 4 (CMYK, or YCCK under an Adobe marker whose transform is
+// not 0); each component's sampling factor equal to the largest or half of
+// it in each direction. Anything else is refused with a message that names
+// the form: arithmetic coding (SOF9-11, DAC), lossless (SOF3), hierarchical
+// (SOF5-7, SOF13-15), 12-bit samples, 2 components, other sampling factors,
+// more than 10 blocks in an MCU, progressive scans that leave coefficients
+// unrefined (libjpeg would block-smooth them) and truncated data. Corrupt
+// data are refused where libjpeg refuses them (an over-full Huffman table,
+// a DC symbol above 15, a DC sum outside int) and before any write they
+// could send out of bounds. A sequential frame whose later scans
 // are missing decodes as libjpeg decodes it: unscanned components are flat.
 //
 // The stages that set the bits, each as libjpeg does it:
@@ -29,15 +30,19 @@
 //     component is more than 2 samples wide (else box replication), h1v2
 //     fancy upsampling, with the edge samples replicated as jdmainct.c's
 //     context rows and the SIMD routines' dummy column do;
-//   - jdcolor.c's ycc_rgb_convert tables (SCALEBITS 16).
+//   - jdcolor.c's ycc_rgb_convert tables (SCALEBITS 16), and its
+//     ycck_cmyk_convert (the same tables, inverted, K passed through) for
+//     YCCK; CMYK comes out as stored (PIL inverts it as Adobe files
+//     store it, data/image_io.py).
 //
 // C API (ctypes):
 //   int superdiff_jpeg_header(const uint8_t* data, int64_t n, int64_t* dims,
 //                             char* err, int64_t errlen)
-//     dims[0..2] = height, width, output channels (1 or 3).
+//     dims[0..2] = height, width, output channels (1, 3 or 4).
 //   int superdiff_jpeg_decode(const uint8_t* data, int64_t n, uint8_t* out,
 //                             int64_t out_size, char* err, int64_t errlen)
-//     out: height * width * channels bytes, row-major, RGB interleaved.
+//     out: height * width * channels bytes, row-major, RGB or CMYK
+//     interleaved.
 //   Both return 0, or 1 with a message in err (a NUL-terminated string).
 //
 // Build: g++ -O2 -fPIC -std=c++17 -pthread -shared (superdiff_torch/ops/
@@ -239,7 +244,7 @@ struct Decoder {
   int restart_interval = 0;
   bool saw_jfif = false, saw_adobe = false;
   int adobe_transform = -1;
-  Component comp[3];
+  Component comp[4];
   uint16_t qt[4][64];
   bool qt_defined[4] = {false, false, false, false};
   Huffman dc[4], ac[4];
@@ -268,9 +273,7 @@ struct Decoder {
     if (height == 0)
       fail("unsupported form: height defined by a DNL marker");
     if (width == 0) fail("corrupt data: zero width");
-    if (ncomp == 4)
-      fail("unsupported form: 4 components (CMYK / YCCK)");
-    if (ncomp != 1 && ncomp != 3)
+    if (ncomp != 1 && ncomp != 3 && ncomp != 4)
       fail("unsupported form: " + std::to_string(ncomp) + " components");
     if (len < 6 + 3 * ncomp) fail("corrupt data: short frame header");
     for (int c = 0; c < ncomp; ++c) {
@@ -288,7 +291,7 @@ struct Decoder {
     mcus_y = (height + 8 * max_v - 1) / (8 * max_v);
     for (int c = 0; c < ncomp; ++c) {
       Component& k = comp[c];
-      if (ncomp == 3 &&
+      if (ncomp > 1 &&
           !((k.h == max_h || 2 * k.h == max_h) &&
             (k.v == max_v || 2 * k.v == max_v)))
         fail("unsupported form: sampling factors " + std::to_string(k.h) +
@@ -430,7 +433,7 @@ struct Decoder {
     const int ns = d[p];
     if (ns < 1 || ns > ncomp || end < p + 1 + 2 * ns + 3)
       fail("corrupt data: bad scan header");
-    Component* sc[3];
+    Component* sc[4];
     for (int i = 0; i < ns; ++i) {
       const int cid = d[p + 1 + 2 * i], t = d[p + 2 + 2 * i];
       int c = 0;
@@ -441,6 +444,14 @@ struct Decoder {
       sc[i]->ac_tbl = t & 15;
       if (sc[i]->dc_tbl > 3 || sc[i]->ac_tbl > 3)
         fail("corrupt data: bad Huffman table id");
+    }
+    if (ns > 1) {                 // jdinput.c per_scan_setup
+      int blocks = 0;
+      for (int i = 0; i < ns; ++i) blocks += sc[i]->h * sc[i]->v;
+      if (blocks > 10)
+        fail("unsupported form: sampling factors too large for an "
+             "interleaved scan (" + std::to_string(blocks) +
+             " blocks in an MCU, at most 10)");
     }
     const size_t q = p + 1 + 2 * ns;
     const int ss = d[q], se = d[q + 1], ah = d[q + 2] >> 4, al = d[q + 2] & 15;
@@ -783,7 +794,11 @@ struct Decoder {
     return out;
   }
 
-  bool rgb_source() const {       // jdapimin.c default_decompress_parms
+  // jdapimin.c default_decompress_parms: the colour space of the stored
+  // components. Three: RGB or YCbCr; four: CMYK, or YCCK under an Adobe
+  // marker whose transform is not 0 (2, or unknown and "assumed YCCK").
+  bool rgb_source() const {
+    if (ncomp == 4) return !saw_adobe || adobe_transform == 0;
     if (saw_jfif) return false;
     if (saw_adobe) return adobe_transform == 0;
     return comp[0].id == 82 && comp[1].id == 71 && comp[2].id == 66;
@@ -796,13 +811,18 @@ struct Decoder {
       std::memcpy(out, y.data(), npx);
       return;
     }
+    const int nc = ncomp;
     const std::vector<uint8_t> c0 = upsample(comp[0]), c1 = upsample(comp[1]),
-                               c2 = upsample(comp[2]);
+                               c2 = upsample(comp[2]),
+                               c3 = nc == 4 ? upsample(comp[3])
+                                            : std::vector<uint8_t>();
+    if (nc == 4)
+      for (size_t i = 0; i < npx; ++i) out[4 * i + 3] = c3[i];   // K
     if (rgb_source()) {
       for (size_t i = 0; i < npx; ++i) {
-        out[3 * i] = c0[i];
-        out[3 * i + 1] = c1[i];
-        out[3 * i + 2] = c2[i];
+        out[nc * i] = c0[i];
+        out[nc * i + 1] = c1[i];
+        out[nc * i + 2] = c2[i];
       }
       return;
     }
@@ -824,12 +844,15 @@ struct Decoder {
     auto clamp = [](int v) {
       return static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v));
     };
+    // ycck_cmyk_convert stores range_limit[255 - (y + ...)], which is
+    // 255 - the clamped RGB sample
+    const uint8_t flip = nc == 4 ? 255 : 0;
     for (size_t i = 0; i < npx; ++i) {
       const int y = c0[i], cb = c1[i], cr = c2[i];
-      out[3 * i] = clamp(y + cr_r[cr]);
-      out[3 * i + 1] =
-          clamp(y + static_cast<int>((cb_g[cb] + cr_g[cr]) >> SB));
-      out[3 * i + 2] = clamp(y + cb_b[cb]);
+      out[nc * i] = flip ^ clamp(y + cr_r[cr]);
+      out[nc * i + 1] =
+          flip ^ clamp(y + static_cast<int>((cb_g[cb] + cr_g[cr]) >> SB));
+      out[nc * i + 2] = flip ^ clamp(y + cb_b[cb]);
     }
   }
 };

@@ -13,11 +13,12 @@ its own copy of those operations, held against PIL by the CPU tests:
   >> 16``, a palette through the luma of its entries, alpha dropped, 16-bit
   samples of colour images by their high byte and 16-bit grayscale
   **clipped at 255** (PIL's ``I;16`` -> ``L``). JPEG (baseline, extended
-  sequential and progressive Huffman at 8 bits, gray or 3 components, chroma
-  subsampled up to 2:1 each way, restart intervals) is decoded by
+  sequential and progressive Huffman at 8 bits, gray, 3 or 4 components,
+  chroma subsampled up to 2:1 each way, restart intervals) is decoded by
   ``csrc/jpeg_decode.cpp`` to the samples PIL's libjpeg-turbo gives (ISLOW
-  IDCT, fancy upsampling, fixed-point YCbCr->RGB), then the same luma; other
-  JPEG forms raise ``ValueError`` naming the form. PIL is never imported.
+  IDCT, fancy upsampling, fixed-point YCbCr->RGB, YCCK->CMYK), then the same
+  luma (CMYK inverted and through PIL's ``cmyk2rgb`` first); other JPEG
+  forms raise ``ValueError`` naming the form. PIL is never imported.
 - :func:`resize_u8`: ``Image.resize`` of a mode ``L`` image with the
   ``BILINEAR`` or ``BICUBIC`` filter: PIL's separable resampling with
   coefficients normalised in double and rounded to 22-bit fixed point,
@@ -252,7 +253,8 @@ def _jpeg_lib():
 
 def decode_jpeg_samples(data: bytes) -> np.ndarray:
     """A JPEG file's bytes -> libjpeg's output samples: ``(H, W)`` for a
-    gray file, ``(H, W, 3)`` RGB for a colour one. Raises ``ValueError``
+    gray file, ``(H, W, 3)`` RGB for a colour one, ``(H, W, 4)`` CMYK as
+    stored for a 4-component one (YCCK converted). Raises ``ValueError``
     naming the form for files outside the forms listed in the module
     docstring, and for truncated or corrupt data."""
     lib = _jpeg_lib()
@@ -271,11 +273,27 @@ def decode_jpeg_samples(data: bytes) -> np.ndarray:
     return out[..., 0] if c == 1 else out
 
 
+def _cmyk_rgb(cmyk: np.ndarray) -> np.ndarray:
+    """PIL's ``cmyk2rgb``: ``CLIP8(nk - MULDIV255(c, nk))`` per channel with
+    ``nk = 255 - k``, ``MULDIV255(a, b) = ((t >> 8) + t) >> 8`` for ``t = a
+    b + 128``."""
+    x = cmyk.astype(np.int32)
+    nk = 255 - x[..., 3:]
+    t = x[..., :3] * nk + 128
+    return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)
+
+
 def decode_jpeg(data: bytes) -> np.ndarray:
     """A JPEG file's bytes -> its ``convert("L")`` as a ``(H, W)`` uint8
-    array: the decoded gray samples, or PIL's luma of the RGB ones."""
+    array: the decoded gray samples, or PIL's luma of the RGB ones; CMYK
+    samples are inverted first (PIL reads every 4-component JPEG as
+    ``CMYK;I``, Adobe's polarity) and go through ``cmyk2rgb``."""
     px = decode_jpeg_samples(data)
-    return px if px.ndim == 2 else _luma(px)
+    if px.ndim == 2:
+        return px
+    if px.shape[-1] == 4:
+        px = _cmyk_rgb(255 - px)
+    return _luma(px)
 
 
 # -------------------------------------------------------------- reading ----

@@ -116,13 +116,17 @@ class GraphedSampler:
     def __call__(self, generator: Optional[torch.Generator] = None,
                  y: Optional[torch.Tensor] = None,
                  x_init: Optional[torch.Tensor] = None,
-                 noise: Optional[Sequence[torch.Tensor]] = None):
+                 noise: Optional[Sequence[torch.Tensor]] = None,
+                 num_frames: int = 0):
         """One batch: the initial sample (from ``generator`` or ``x_init``)
         and labels ``y``, then per step the draw (or ``noise[i]``) and
         :meth:`step`. Returns a copy of the output: ``x``, or ``(x, logq)``
-        for SuperDiff."""
-        out, _ = _run_plan(self.plan, generator, x_init, noise, y=y,
-                           step=self.step)
-        if isinstance(out, tuple):
-            return tuple(o.clone() for o in out)
-        return out.clone()
+        for SuperDiff; with ``num_frames > 0`` also the ``(num_frames,
+        ...)`` trajectory, ``x`` copied into a frames buffer between
+        replays at ``samplers.make_frame_recorder``'s positions (outside
+        the captured step, so the graph stays one step)."""
+        out, frames = _run_plan(self.plan, generator, x_init, noise,
+                                num_frames, y=y, step=self.step)
+        out = (tuple(o.clone() for o in out) if isinstance(out, tuple)
+               else out.clone())
+        return (out, frames) if num_frames > 0 else out

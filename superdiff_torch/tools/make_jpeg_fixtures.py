@@ -4,7 +4,10 @@ The machine with the card has no PIL and cannot write JPEG, so a few small
 files are committed under ``tests/torch_jpeg/``: X-ray-like images at
 512-1024 px a side, one per form the decoder must cover (gray baseline at
 1024² and at an odd size; YCbCr 4:2:0, 4:2:2 and 4:4:4; progressive gray
-and colour; optimised Huffman tables with restart markers). ``manifest.json``
+and colour; optimised Huffman tables with restart markers; CMYK with
+PIL's Adobe marker, baseline and progressive; YCCK, a PIL-written CMYK file
+whose Adobe transform byte is set to 2, since PIL writes no YCCK).
+``manifest.json``
 records each file's form and the shape and SHA-256 of
 ``PIL.Image.open(path).convert("L")``'s bytes, which the CPU tests and
 ``chip_smoke.py`` hold ``data/image_io.py::read_gray`` to.
@@ -28,26 +31,34 @@ import numpy as np
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
-# name, (height, width), colour, PIL save options, form
+# name, (height, width), kind (gray, rgb, cmyk or ycck), PIL save options,
+# form
 FIXTURES = (
-    ("gray_1024_baseline.jpg", (1024, 1024), False, {"quality": 80},
+    ("gray_1024_baseline.jpg", (1024, 1024), "gray", {"quality": 80},
      "gray baseline 1024²"),
-    ("gray_613x739_baseline.jpg", (613, 739), False, {"quality": 75},
+    ("gray_613x739_baseline.jpg", (613, 739), "gray", {"quality": 75},
      "gray baseline, odd size"),
-    ("ycc420_750x1000.jpg", (750, 1000), True,
+    ("ycc420_750x1000.jpg", (750, 1000), "rgb",
      {"quality": 75, "subsampling": 2}, "YCbCr 4:2:0, not a multiple of 16"),
-    ("ycc422_600x800.jpg", (600, 800), True,
+    ("ycc422_600x800.jpg", (600, 800), "rgb",
      {"quality": 75, "subsampling": 1}, "YCbCr 4:2:2"),
-    ("ycc444_512x640.jpg", (512, 640), True,
+    ("ycc444_512x640.jpg", (512, 640), "rgb",
      {"quality": 75, "subsampling": 0}, "YCbCr 4:4:4"),
-    ("gray_700x900_progressive.jpg", (700, 900), False,
+    ("gray_700x900_progressive.jpg", (700, 900), "gray",
      {"quality": 75, "progressive": True}, "gray progressive"),
-    ("ycc420_640x768_progressive.jpg", (640, 768), True,
+    ("ycc420_640x768_progressive.jpg", (640, 768), "rgb",
      {"quality": 75, "subsampling": 2, "progressive": True},
      "YCbCr 4:2:0 progressive"),
-    ("gray_800x1024_optimized_restart.jpg", (800, 1024), False,
+    ("gray_800x1024_optimized_restart.jpg", (800, 1024), "gray",
      {"quality": 75, "optimize": True, "restart_marker_rows": 2},
      "gray, optimised Huffman tables, restart markers"),
+    ("cmyk_512x640.jpg", (512, 640), "cmyk", {"quality": 75},
+     "CMYK, Adobe marker (transform 0)"),
+    ("cmyk_520x600_progressive.jpg", (520, 600), "cmyk",
+     {"quality": 75, "subsampling": 2, "progressive": True},
+     "CMYK progressive, first plane 2x2"),
+    ("ycck_512x576.jpg", (512, 576), "ycck",
+     {"quality": 75, "subsampling": 2}, "YCCK (Adobe transform 2)"),
 )
 
 
@@ -74,6 +85,22 @@ def tint(rng: np.random.Generator, gray: np.ndarray) -> np.ndarray:
     return np.clip(np.dstack(chans), 0, 255).astype(np.uint8)
 
 
+def cmyk(rng: np.random.Generator, gray: np.ndarray) -> np.ndarray:
+    """A CMYK image from a gray one: the inks of a tinted copy, with a
+    black plane that carries the image's dark structure."""
+    inks = 255 - tint(rng, gray).astype(np.float32) * 0.85
+    k = (255 - gray.astype(np.float32)) * 0.4
+    return np.clip(np.dstack([inks, k]), 0, 255).astype(np.uint8)
+
+
+def set_adobe_transform(data: bytes, transform: int) -> bytes:
+    """``data`` with the transform byte of its Adobe APP14 marker set."""
+    i = data.find(b"\xff\xee")
+    if i < 0 or data[i + 4:i + 9] != b"Adobe":
+        raise ValueError("no Adobe marker")
+    return data[:i + 15] + bytes([transform]) + data[i + 16:]
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", default=os.path.join(_REPO, "tests", "torch_jpeg"))
@@ -84,12 +111,21 @@ def main(argv=None) -> int:
     os.makedirs(args.out, exist_ok=True)
     rng = np.random.default_rng(args.seed)
     files, total = [], 0
-    for name, (h, w), colour, opts, form in FIXTURES:
+    for name, (h, w), kind, opts, form in FIXTURES:
         img = xray_like(rng, h, w)
-        if colour:
+        if kind == "rgb":
             img = tint(rng, img)
+        elif kind in ("cmyk", "ycck"):
+            img = cmyk(rng, img)
         path = os.path.join(args.out, name)
-        Image.fromarray(img).save(path, format="JPEG", **opts)
+        pil = Image.fromarray(img, "CMYK" if img.ndim == 3 and
+                              img.shape[-1] == 4 else None)
+        pil.save(path, format="JPEG", **opts)
+        if kind == "ycck":
+            with open(path, "rb") as f:
+                data = set_adobe_transform(f.read(), 2)
+            with open(path, "wb") as f:
+                f.write(data)
         with Image.open(path) as im:
             gray = np.asarray(im.convert("L"), dtype=np.uint8)
         total += os.path.getsize(path)

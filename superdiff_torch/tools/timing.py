@@ -28,17 +28,20 @@ def cuda_time_ms(fn, iters, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def kernel_device_ms(fn, iters=20, kernel=("flash_fwd_kernel",)):
+def kernel_device_ms(fn, iters=20, kernel=("flash_fwd_kernel",),
+                     attempts=3):
     """Device ms per call of the kernels whose names contain one of
     ``kernel`` (all kernels for ``None``), or ``"not measured"``.
 
     The profiler sometimes loses kernel events (seen on the H100 in long
     runs), so a window's plain sum would read low. A call launches the same
-    kernels each time: each kernel's count per call is the largest seen in
-    five one-call windows and in a window of ``iters`` calls, and the time
-    per call is the sum over the kernels of that count times the kernel's
-    mean duration in the ``iters``-call window. With no event lost this is
-    that window's sum over ``iters``."""
+    kernels each time: each kernel seen is counted at least once per call,
+    its count per call is the largest seen in five one-call windows and in
+    a window of ``iters`` calls, and the time per call is the sum over the
+    kernels of that count times the kernel's mean duration in the
+    ``iters``-call window. With no event lost this is that window's sum
+    over ``iters``. A measurement that comes to no positive time is taken
+    again, up to ``attempts`` times in all."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -56,17 +59,25 @@ def kernel_device_ms(fn, iters=20, kernel=("flash_fwd_kernel",)):
                     e.time_range.elapsed_us())
         return times
 
+    def measure():
+        ones = [window(1) for _ in range(5)]
+        many = window(iters)
+        per_call = {name: max(1, max(len(w.get(name, ())) for w in ones),
+                              round(len(many.get(name, ())) / iters))
+                    for name in set(many).union(*ones)}
+        if not many or any(name not in many for name in per_call):
+            return "not measured"
+        ms = sum(n * sum(many[name]) / len(many[name])
+                 for name, n in per_call.items()) / 1e3
+        return ms if ms > 0 else "not measured"
+
     fn()
     torch.cuda.synchronize()
-    ones = [window(1) for _ in range(5)]
-    many = window(iters)
-    per_call = {name: max(max(len(w.get(name, ())) for w in ones),
-                          round(len(many.get(name, ())) / iters))
-                for name in set(many).union(*ones)}
-    if not many or any(name not in many for name in per_call):
-        return "not measured"
-    return sum(n * sum(many[name]) / len(many[name])
-               for name, n in per_call.items()) / 1e3
+    ms = "not measured"
+    for _ in range(attempts):
+        if ms == "not measured":
+            ms = measure()
+    return ms
 
 
 def graph_time_ms(fn, calls=20, replays=10):

@@ -8,9 +8,9 @@ Port of ``superdiff_tpu/training/loop.py`` for one device:
 - validation on the EMA parameters over a fixed stream, with the best-val
   state tagged into ``<checkpoint_dir>_best`` and ``best_val.json``;
 - every ``vis_every`` epochs: EMA-sampled images vs a real batch as a PNG,
-  and a loss curve at the end. Both plots need matplotlib and are made only
-  when ``training.vis_every > 0`` (the JAX loop draws the loss curve
-  unconditionally).
+  and a loss curve at the end, drawn by the port's own renderer
+  (``utils/raster.py``; no matplotlib), only when ``training.vis_every >
+  0`` (the JAX loop draws the loss curve unconditionally).
 
 The loop never waits for the device inside an epoch: losses stay device
 tensors and are fetched once per epoch. Data comes from a class-folder tree

@@ -831,3 +831,57 @@ def test_jpeg_fixtures_decode_to_the_manifest_on_card(cuda):
         assert list(img.shape) == e["shape"], e["name"]
         assert hashlib.sha256(img.tobytes()).hexdigest() == e["sha256"], \
             e["name"]
+
+
+@pytest.mark.cuda
+def test_graphed_trajectory_frames_equal_eager_on_card(cuda):
+    """A captured sampler step records the eager run's 8 trajectory frames
+    and samples bit for bit (the frames are copied between replays)."""
+    from superdiff_torch.diffusion import make_schedule
+    from superdiff_torch.diffusion.graphed import GraphedSampler
+    from superdiff_torch.diffusion.samplers import DDPMPlan
+    from superdiff_torch.models.unet import CondUNet
+
+    s = make_schedule(40, device=cuda)
+    m = CondUNet(resolution=16, base_channels=16, channel_mults=(1, 2),
+                 num_res_blocks=1, attn_resolutions=(8,), num_heads=2,
+                 num_classes=0, time_emb_dim=32, groups=4,
+                 device="cpu").init_parameters(1).to(cuda).eval()
+    fn_ = lambda x, t: m(x, t)
+
+    def run(capture):
+        sampler = GraphedSampler(DDPMPlan(s, fn_, (4, 16, 16, 1)),
+                                 capture=capture)
+        assert (sampler.graph is not None) == capture
+        return sampler(torch.Generator(device=cuda).manual_seed(3),
+                       num_frames=8)
+
+    x, frames = run(True)
+    ex, eframes = run(False)
+    assert frames.shape == (8, 4, 16, 16, 1)
+    assert torch.equal(x, ex) and torch.equal(frames, eframes)
+    assert torch.equal(frames[-1], x)
+
+
+@pytest.mark.cuda
+def test_smallcnn_gradcam_through_b4_matches_plain_on_card(cuda,
+                                                          monkeypatch):
+    """Grad-CAM of the SmallCNN at 256²: 3 B4 launches per image (the
+    feature map runs without gradients), the CAM within 1e-5 of the plain
+    chain's (cuDNN's TF32 off), the same class."""
+    from superdiff_torch.analysis import SmallCNN
+    from superdiff_torch.analysis.gradcam import compute_gradcam
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    model = SmallCNN(2, device="cpu").init_parameters(4).to(cuda).eval()
+    g = torch.Generator(device=cuda).manual_seed(1)
+    img = torch.rand((256, 256, 1), generator=g, device=cuda)
+    fn.reset_launches()
+    cam, pred = compute_gradcam(model, img)
+    assert fn.launches == 3 and cam.shape == (32, 32)
+    monkeypatch.setattr(fn, "_gn_silu_cuda", lambda x, gamma, beta, G,
+                        scale, shift, eps: fn.gn_silu_plain(
+                            x, gamma, beta, G, scale, shift, eps))
+    want, wpred = compute_gradcam(model, img)
+    assert pred == wpred
+    assert abs(cam - want).max() < 1e-5

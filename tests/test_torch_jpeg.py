@@ -2,9 +2,10 @@
 against PIL's ``Image.open(path).convert("L")`` (libjpeg-turbo), bit for
 bit, on the CPU: the committed fixtures and their manifest, JPEGs written by
 PIL in every form the decoder takes (each chroma subsampling, progressive,
-optimised tables, restart markers, an Adobe RGB file) at sizes down to
-1x1, decoding with PIL blocked, the forms it refuses, and a ``.jpg`` tree
-through the batch iterator against the JAX package's."""
+optimised tables, restart markers, an Adobe RGB file, CMYK and YCCK) at
+sizes down to 1x1, decoding with PIL blocked, the forms it refuses (and
+those PIL refuses too), and a ``.jpg`` tree through the batch iterator
+against the JAX package's."""
 
 import hashlib
 import io
@@ -70,8 +71,8 @@ def test_committed_fixture_decodes_to_pil_bits(entry):
 def test_manifest_hashes_are_pil_bits():
     """The manifest describes the files as they are: PIL's ``convert("L")``
     hash of each, every form the decoder must cover, within the size
-    budget (8 files, 1.5 MB)."""
-    assert len(MANIFEST) <= 8
+    budget (11 files, 1.5 MB)."""
+    assert len(MANIFEST) <= 11
     assert sum(os.path.getsize(os.path.join(FIXTURES, e["name"]))
                for e in MANIFEST) <= 1_500_000
     for e in MANIFEST:
@@ -82,7 +83,7 @@ def test_manifest_hashes_are_pil_bits():
     forms = " | ".join(e["form"] for e in MANIFEST)
     for want in ("gray baseline 1024²", "odd size", "4:2:0", "4:2:2", "4:4:4",
                  "gray progressive", "YCbCr 4:2:0 progressive", "optimised",
-                 "restart"):
+                 "restart", "CMYK, Adobe", "CMYK progressive", "YCCK"):
         assert want in forms, want
 
 
@@ -286,6 +287,53 @@ def test_adobe_marker_selects_rgb_or_ycbcr(transform):
         np.testing.assert_array_equal(rgb, np.asarray(im.convert("RGB")))
 
 
+def _strip_adobe(data: bytes) -> bytes:
+    i = data.find(b"\xff\xee")
+    assert data[i + 4:i + 9] == b"Adobe"
+    return data[:i] + data[i + 2 + ((data[i + 2] << 8) | data[i + 3]):]
+
+
+CMYK_FORMS = {
+    "cmyk": ({}, None),
+    "cmyk_first_plane_2x2": ({"subsampling": 2}, None),
+    "cmyk_progressive_restart": ({"progressive": True,
+                                  "restart_marker_blocks": 2}, None),
+    "cmyk_no_adobe_marker": ({}, "strip"),
+    "ycck": ({}, 2),
+    "ycck_first_plane_2x2_progressive": ({"subsampling": 2,
+                                          "progressive": True}, 2),
+    "ycck_unknown_transform": ({}, 7),
+}
+
+
+@pytest.mark.parametrize("form", list(CMYK_FORMS))
+def test_cmyk_and_ycck_decode_to_pil_bits(form):
+    """4-component files at 1x1, 7x9, 17x33 and 61x46: CMYK as PIL writes
+    it (Adobe marker, transform 0) or with no Adobe marker (libjpeg: CMYK),
+    and YCCK (transform 2, or an unknown one, which libjpeg takes for
+    YCCK). PIL reads every 4-component JPEG inverted (``CMYK;I``): the
+    port's samples are PIL's CMYK bytes inverted, its gray PIL's."""
+    from superdiff_torch.tools.make_jpeg_fixtures import set_adobe_transform
+
+    opts, change = CMYK_FORMS[form]
+    rng = np.random.default_rng(len(form))
+    for h, w in ((1, 1), (7, 9), (17, 33), (61, 46)):
+        inks = np.dstack([_xray(rng, h, w, True), _xray(rng, h, w, False)])
+        buf = io.BytesIO()
+        Image.fromarray(inks, "CMYK").save(buf, format="JPEG", **opts)
+        data = buf.getvalue()
+        if change == "strip":
+            data = _strip_adobe(data)
+        elif change is not None:
+            data = set_adobe_transform(data, change)
+        got = image_io.decode_jpeg(data)
+        np.testing.assert_array_equal(got, _pil_gray(data), f"{h}x{w}")
+        with Image.open(io.BytesIO(data)) as im:
+            assert im.mode == "CMYK"
+            np.testing.assert_array_equal(
+                255 - image_io.decode_jpeg_samples(data), np.asarray(im))
+
+
 def test_decoding_needs_no_pil(tmp_path, monkeypatch):
     """With PIL blocked from import, ``read_gray`` still decodes a fixture
     and a PIL-written progressive 4:2:0 file to PIL's bits (computed before
@@ -351,12 +399,9 @@ def _bad(form):
         return _patch(gray, sof + 1, 0xC5)
     if form == "12-bit samples":
         return _patch(gray, sof + 4, 12)
-    if form == "4 components (CMYK / YCCK)":
-        cmyk = Image.fromarray(np.dstack([_xray(rng, 16, 16, False)] * 4),
-                               "CMYK")
-        buf = io.BytesIO()
-        cmyk.save(buf, format="JPEG")
-        return buf.getvalue()
+    if form == "2 components":
+        colour = _jpeg(_xray(rng, 16, 16, True), subsampling=0)
+        return _patch(colour, _sof_offset(colour) + 9, 2)
     if form == "sampling factors 1x1 against 4x1":
         colour = _jpeg(_xray(rng, 16, 16, True), subsampling=1)
         sof = _sof_offset(colour)
@@ -369,11 +414,43 @@ def _bad(form):
 @pytest.mark.parametrize("form", [
     "arithmetic coding (SOF9)", "lossless JPEG (SOF3)",
     "hierarchical JPEG (SOF5)", "12-bit samples",
-    "4 components (CMYK / YCCK)", "sampling factors 1x1 against 4x1",
+    "2 components", "sampling factors 1x1 against 4x1",
     "truncated data"])
 def test_unsupported_forms_raise_naming_file_and_form(form, tmp_path):
     path = tmp_path / "scan_0042.jpg"
     path.write_bytes(_bad(form))
+    with pytest.raises(ValueError) as e:
+        image_io.read_gray(str(path))
+    msg = str(e.value)
+    assert str(path) in msg and form in msg, msg
+
+
+REFUSED_BY_BOTH = ("hierarchical JPEG (SOF5)", "12-bit samples",
+                   "truncated data", "sampling factors too large")
+
+
+@pytest.mark.parametrize("form", REFUSED_BY_BOTH)
+def test_forms_refused_by_both_pil_and_the_port(form, tmp_path):
+    """A committed fixture patched into a form PIL (libjpeg-turbo) refuses
+    as well: its SOF marker to SOF5, its precision byte to 12, cut in half,
+    or its three 1x1 components set to 2x2 (12 blocks in an interleaved MCU,
+    over libjpeg's 10). Refusing them agrees with the reference."""
+    with open(os.path.join(FIXTURES, "ycc444_512x640.jpg"), "rb") as f:
+        data = f.read()
+    sof = _sof_offset(data)
+    if form == "hierarchical JPEG (SOF5)":
+        data = _patch(data, sof + 1, 0xC5)
+    elif form == "12-bit samples":
+        data = _patch(data, sof + 4, 12)
+    elif form == "truncated data":
+        data = data[:len(data) // 2]
+    else:
+        for c in range(3):
+            data = _patch(data, sof + 11 + 3 * c, 0x22)
+    with pytest.raises(OSError):                # PIL refuses it
+        _pil_gray(data)
+    path = tmp_path / "film_3.jpg"
+    path.write_bytes(data)
     with pytest.raises(ValueError) as e:
         image_io.read_gray(str(path))
     msg = str(e.value)
