@@ -3,7 +3,11 @@
 Modes:
 - single-run DDPM (full-T ancestral), DDIM (``--num-steps``/``--eta``) or
   DPM-Solver++(2M) (``--method dpmpp``);
-- SuperDiff superposition of two runs (``--run-dir2``, ``--mode``).
+- SuperDiff superposition of two runs (``--run-dir2``, ``--mode``);
+- ``--data-parallel``: each batch split over every process of the group
+  (``SUPERDIFF_TPU_MULTIHOST=1`` launch, ``parallel/mesh.py``), each rank
+  sampling its rows from the whole batch's noise; rank 0 gathers the rows
+  and writes the files, which equal a single process's.
 
 Each batch is one :class:`~superdiff_torch.diffusion.graphed.GraphedSampler`
 run: on the card, one CUDA graph of one sampler step, captured once and
@@ -64,6 +68,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num-batches", type=int, default=1)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out", default="samples")
+    p.add_argument("--data-parallel", action="store_true",
+                   help="shard each batch over all devices (data axis)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; raises if absent)")
     return p
@@ -87,14 +93,30 @@ def main(argv=None, eager: bool = False) -> int:
                                            resolve_sampler_spec)
     from superdiff_torch.utils.visualization import save_image_grid
 
-    device = torch.device(args.device)
+    mesh = rows = None
+    main, joined = True, False
+    if args.data_parallel:
+        from superdiff_torch.parallel.mesh import (
+            is_main_process, local_rows, make_mesh, maybe_init_distributed)
+        # the group exists before anything touches the device
+        joined = maybe_init_distributed(args.device)
+        mesh = make_mesh(device=args.device)
+        main = is_main_process()
+        n = mesh.shape["data"]
+        if args.batch_size % n:
+            raise ValueError(f"--batch-size {args.batch_size} not divisible "
+                             f"by {n} devices")
+        rows = local_rows(args.batch_size, mesh)
+    device = mesh.device if mesh is not None else torch.device(args.device)
     cfg, model, schedule = load_run(args.run_dir, device=device,
                                     step=args.step, best=args.best)
     apply_sampling_policy(model)
     R = cfg.training.resolution
     B = args.batch_size
     shape = (B, R, R, 1)
-    os.makedirs(args.out, exist_ok=True)
+    if main:
+        os.makedirs(args.out, exist_ok=True)
+    say = print if main else (lambda *a, **k: None)
 
     superpose = args.run_dir2 is not None
     if superpose:
@@ -107,7 +129,7 @@ def main(argv=None, eager: bool = False) -> int:
                lambda x, t: apply2(model2, x, t)]
         plan = SuperDiffPlan(schedule, fns, shape, mode=args.mode,
                              kappa=list(args.kappa),
-                             temperature=args.temperature)
+                             temperature=args.temperature, rows=rows)
     else:
         method, num_steps, spacing, clip_x0 = resolve_sampler_spec(
             cfg, args.method, args.num_steps, args.spacing)
@@ -119,6 +141,7 @@ def main(argv=None, eager: bool = False) -> int:
         else:
             applyp = make_eps_fn_p(model, args.label, schedule=schedule)
             extra = {}
+        extra["rows"] = rows
         fn = lambda *a: applyp(model, *a)
 
         if method == "ddim":
@@ -139,29 +162,39 @@ def main(argv=None, eager: bool = False) -> int:
     sampler = GraphedSampler(plan, capture=device.type == "cuda"
                              and not eager)
     if sampler.graph is not None:
-        print(f"captured one {type(plan).__name__} step as a CUDA graph in "
-              f"{time.time() - tic:.3f}s")
+        say(f"captured one {type(plan).__name__} step as a CUDA graph in "
+            f"{time.time() - tic:.3f}s")
+    run = sampler
+    if mesh is not None:
+        from superdiff_torch.parallel.mesh import shard_sample
+        run = shard_sample(sampler, mesh, with_logq=superpose)
 
     all_batches, all_logq = [], []
     for b in range(args.num_batches):
         g = torch.Generator(device=device).manual_seed(args.seed + b)
         tic = time.time()
-        out = sampler(g)
+        out = run(g)
         if superpose:
             x, logq = out
             lq = logq.cpu().numpy()
             all_logq.append(lq)
-            print(f"batch {b}: {time.time() - tic:.3f}s  logq1-logq2 mean "
-                  f"{float(np.mean(lq[0] - lq[1])):.2f}")
+            say(f"batch {b}: {time.time() - tic:.3f}s  logq1-logq2 mean "
+                f"{float(np.mean(lq[0] - lq[1])):.2f}")
         else:
             x = out
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
-            print(f"batch {b}: {time.time() - tic:.3f}s")
+            say(f"batch {b}: {time.time() - tic:.3f}s")
         imgs = x.float().cpu().numpy()
         all_batches.append(imgs)
-        save_image_grid(imgs, os.path.join(args.out, f"batch{b}.png"))
+        if main:
+            save_image_grid(imgs, os.path.join(args.out, f"batch{b}.png"))
 
+    if joined:
+        from superdiff_torch.parallel.mesh import leave_distributed
+        leave_distributed(joined)
+    if not main:
+        return 0
     stack = np.concatenate(all_batches)
     np.save(os.path.join(args.out, "samples.npy"), stack)
     if all_logq:

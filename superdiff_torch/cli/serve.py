@@ -3,9 +3,11 @@
 Loads a run dir, applies the production sampling dtype policy, captures the
 default spec's CUDA graph (warmup) and serves micro-batched requests (see
 ``superdiff_torch/serve.py`` for the batching and graph model). The flags
-are the reference CLI's, without ``--data-parallel`` (one device) and with
-``--device`` (default ``cuda``; raises without a card; ``--device cpu``
-serves eagerly on the CPU).
+are the reference CLI's, with ``--device`` (default ``cuda``; raises
+without a card; ``--device cpu`` serves eagerly on the CPU).
+``--data-parallel`` splits each batch over every process of the group
+(launched with ``SUPERDIFF_TPU_MULTIHOST=1``): rank 0 serves HTTP, the
+other ranks follow it.
 
 Usage:
     python -m superdiff_torch.cli.serve --run-dir RUN --port 8000 \\
@@ -52,26 +54,42 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mode", choices=["or", "and"], default="or",
                    help="superdiff mixing mode for the warmed spec")
     p.add_argument("--steps", type=int, default=None)
+    p.add_argument("--data-parallel", action="store_true",
+                   help="shard each batch over all devices")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; raises if absent)")
     return p
 
 
-def load_service(args):
+def load_service(args, autostart: bool = True):
     """``(service, cfg, spec)``: the run(s) loaded on ``args.device`` with
-    the sampling policy, the service built, and the spec to warm."""
+    the sampling policy, the service built, and the spec to warm. With
+    ``--data-parallel`` the process joins its group and the service takes
+    the mesh over it (``autostart`` only applies to rank 0)."""
     from superdiff_torch.inference import (apply_sampling_policy,
                                            check_superpose_compat, load_run,
                                            resolve_sampler_spec)
     from superdiff_torch.serve import SamplerService, SampleSpec
 
-    cfg, model, schedule = load_run(args.run_dir, device=args.device,
+    mesh = None
+    device = args.device
+    if getattr(args, "data_parallel", False):
+        from superdiff_torch.parallel.mesh import (
+            is_main_process, make_mesh, maybe_init_distributed)
+        args.joined = maybe_init_distributed(args.device)
+        mesh = make_mesh(device=args.device)
+        device = mesh.device
+        autostart = autostart and is_main_process()
+        if args.batch_size % mesh.shape["data"]:
+            raise SystemExit(f"--batch-size {args.batch_size} not divisible "
+                             f"by {mesh.shape['data']} devices")
+    cfg, model, schedule = load_run(args.run_dir, device=device,
                                     step=args.step, best=args.best)
     apply_sampling_policy(model)
 
     model2 = None
     if args.run_dir2:
-        cfg2, model2, _ = load_run(args.run_dir2, device=args.device)
+        cfg2, model2, _ = load_run(args.run_dir2, device=device)
         try:
             # shared forward SDE: T / resolution / beta schedule
             check_superpose_compat(cfg, cfg2)
@@ -99,7 +117,8 @@ def load_service(args):
         model, schedule, resolution=cfg.training.resolution,
         conditional=cfg.model.conditional, batch_size=args.batch_size,
         max_wait_ms=args.max_wait_ms, model2=model2,
-        t_spacing=t_spacing, clip_x0=clip_x0)
+        t_spacing=t_spacing, clip_x0=clip_x0, mesh=mesh,
+        autostart=autostart)
     steps = steps or (10 if method == "dpmpp" else 50)
     return service, cfg, SampleSpec(method=method, steps=steps,
                                     mode=args.mode)
@@ -111,6 +130,13 @@ def main(argv=None) -> int:
     from superdiff_torch.serve import make_http_server
 
     service, cfg, spec = load_service(args)
+    from superdiff_torch.parallel.mesh import (is_main_process,
+                                               leave_distributed)
+    joined = getattr(args, "joined", False)
+    if not is_main_process():          # a follower of rank 0
+        service.follow()
+        leave_distributed(joined)
+        return 0
     print(f"warming {spec} at batch {args.batch_size} on {args.device} ...",
           flush=True)
     sec = service.warmup(spec)
@@ -126,6 +152,7 @@ def main(argv=None) -> int:
     finally:
         httpd.server_close()
         service.close()
+        leave_distributed(joined)
     return 0
 
 

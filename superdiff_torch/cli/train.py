@@ -3,6 +3,9 @@
 YAML config + dotted-path overrides, experiment/run ids, dataset/task
 selection, logging toggles, ``--no-resume``, ``--synthetic`` for datasetless
 runs, and ``--device`` (default ``cuda``; raises when no card is there).
+Launched as several processes (``SUPERDIFF_TPU_MULTIHOST=1`` with the
+``SUPERDIFF_TPU_COORDINATOR`` / ``_NUM_PROCESSES`` / ``_PROCESS_ID`` triple,
+or under torchrun), it trains data-parallel over all of them.
 
 Usage:
     python -m superdiff_torch.cli.train --synthetic --device cuda \
@@ -44,6 +47,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    # a multi-process launch (SUPERDIFF_TPU_MULTIHOST=1) joins its group
+    # before anything touches the device
+    from superdiff_torch.parallel.mesh import (
+        is_main_process, leave_distributed, maybe_init_distributed)
+    joined = maybe_init_distributed(args.device)
     cfg = load_config(args.config, args.overrides)
     if args.experiment_id:
         cfg.experiment_id = args.experiment_id
@@ -61,10 +69,15 @@ def main(argv=None) -> int:
                     str(v).strip().lower() not in ("false", "0", "no"))
 
     from superdiff_torch.training.loop import train
-    summary = train(cfg, dataset_root=args.dataset_root,
-                    resume=not args.no_resume,
-                    use_synthetic=args.synthetic, device=args.device)
-    print(summary)
+    main = is_main_process()
+    try:
+        summary = train(cfg, dataset_root=args.dataset_root,
+                        resume=not args.no_resume,
+                        use_synthetic=args.synthetic, device=args.device)
+    finally:
+        leave_distributed(joined)
+    if main:
+        print(summary)
     return 0
 
 

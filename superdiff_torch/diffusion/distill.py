@@ -1,7 +1,7 @@
 """Progressive distillation: halve sampler steps, keep quality.
 
 Port of ``superdiff_tpu/diffusion/distill.py`` (Salimans & Ho 2022,
-arXiv:2202.00512) for one device: a *student* denoiser is trained so that
+arXiv:2202.00512): a *student* denoiser is trained so that
 ONE of its DDIM steps reproduces TWO consecutive DDIM steps of a frozen
 *teacher* on the trailing-spaced grid of twice its step count; repeating the
 procedure halves the sampler length each phase. The loss is the paper's
@@ -23,6 +23,11 @@ reproduce, so the step takes optional injected draws (a dict with any of
 this fixed order: the null-label mask ``(B,)`` (conditional and
 ``null_prob > 0``), the transition index ``i`` ``(B,)``, the noise (the
 batch's shape).
+
+With a ``mesh`` the step is data-parallel as the train step is
+(``training/steps.py``): each rank's batch is its rows, the draws are the
+global batch's (every rank makes them and keeps its rows), and the
+gradients and the loss are averaged over ``data``.
 """
 
 from __future__ import annotations
@@ -36,6 +41,8 @@ from superdiff_torch.data.transforms import prepare_batch
 from superdiff_torch.diffusion.process import _bcast_to, x0_from_pred
 from superdiff_torch.diffusion.samplers import trailing_timesteps
 from superdiff_torch.diffusion.schedules import DiffusionSchedule
+from superdiff_torch.parallel.mesh import (
+    all_reduce_mean, gather_rows, local_rows)
 from superdiff_torch.training.state import TrainState, ema_update
 
 
@@ -97,6 +104,7 @@ def distill_targets(x_s, a_s, s_s, a_e, s_e, x_pp):
 def make_distill_step(schedule: DiffusionSchedule,
                       teacher_eps_fn: Callable,
                       num_student_steps: int,
+                      mesh=None,
                       conditional: bool = False,
                       parameterization: str = "v",
                       null_prob: float = 0.0,
@@ -124,6 +132,8 @@ def make_distill_step(schedule: DiffusionSchedule,
     def step_fn(state: TrainState, teacher, batch, draws=None):
         draws = draws or {}
         g = state.generator
+        if mesh is not None:          # the global batch, every rank
+            batch = {k: gather_rows(v, mesh) for k, v in batch.items()}
         x0 = batch["image"]
         if x0.dtype == torch.uint8:
             x0 = prepare_batch(x0, None, augmentation="none",
@@ -148,6 +158,11 @@ def make_distill_step(schedule: DiffusionSchedule,
             noise = torch.randn(x0.shape, generator=g, device=dev,
                                 dtype=x0.dtype)
         i, noise = i.to(dev), noise.to(dev)
+        if mesh is not None:          # this rank's rows
+            rows = local_rows(B, mesh)
+            x0, i, noise = x0[rows], i[rows], noise[rows]
+            cond = tuple(c[rows] for c in cond)
+            B = x0.shape[0]
         a_s, s_s, a_m, s_m, a_e, s_e = (
             _bcast_to(tab[k][i], x0)
             for k in ("a_s", "s_s", "a_m", "s_m", "a_e", "s_e"))
@@ -176,11 +191,15 @@ def make_distill_step(schedule: DiffusionSchedule,
         loss.backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]
+        loss = loss.detach()
+        if mesh is not None:
+            all_reduce_mean(grads, mesh)
+            all_reduce_mean([loss], mesh)
         grad_norm = state.tx.update(params, grads, state.opt_state)
         ema_update(state.ema_params, params, state.ema_decay, state.step)
         state.step += 1
         for p in params:
             p.grad = None
-        return state, {"loss": loss.detach(), "grad_norm": grad_norm}
+        return state, {"loss": loss, "grad_norm": grad_norm}
 
     return step_fn

@@ -86,7 +86,7 @@ class GraphedSampler:
     def _capture(self, pool) -> "torch.cuda.CUDAGraph":
         global captures
         plan, dev = self.plan, self.device
-        blank = torch.zeros_like(plan.x)
+        blank = plan.x.new_zeros(plan.draw_shape)
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):

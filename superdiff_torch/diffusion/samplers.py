@@ -116,7 +116,13 @@ class SamplerPlan:
     replays that, with the same arithmetic.
 
     A run is :meth:`start` (initial sample, labels), then per step
-    :meth:`draw` (when :attr:`draws_noise`) and :meth:`step`."""
+    :meth:`draw` (when :attr:`draws_noise`) and :meth:`step`.
+
+    ``rows`` (data parallelism, ``parallel/mesh.py::local_rows``): the plan
+    holds only these rows of the batch of ``shape``, but draws the whole
+    batch's noise (the initial sample and every step's) and keeps its rows,
+    so its rows get the bits a single process would give them; labels,
+    ``x_init`` and ``noise`` are then the whole batch's too."""
 
     draws_noise = True
 
@@ -124,9 +130,14 @@ class SamplerPlan:
                  shape: Tuple[int, ...], t: torch.Tensor,
                  y: Optional[torch.Tensor] = None,
                  guidance_scale: float = 1.0, null_label: int = 0,
-                 dtype=torch.float32):
+                 dtype=torch.float32, rows: Optional[slice] = None):
         dev = schedule.device
         self.schedule, self.model_fn = schedule, model_fn
+        self.draw_shape, self.rows = tuple(shape), rows
+        if rows is not None:
+            shape = (len(range(shape[0])[rows]),) + tuple(shape[1:])
+            self._z_all = torch.zeros(self.draw_shape, dtype=dtype,
+                                      device=dev)
         self.shape, self.dtype = tuple(shape), dtype
         self.guidance_scale, self.null_label = guidance_scale, null_label
         self.t = t.to(device=dev, dtype=torch.long)
@@ -136,17 +147,21 @@ class SamplerPlan:
                   if self.draws_noise else None)
         self.pos = torch.zeros((1,), dtype=torch.long, device=dev)
         self.y = (None if y is None
-                  else y.to(device=dev, dtype=torch.long).clone())
+                  else self._mine(y.to(device=dev, dtype=torch.long)).clone())
+
+    def _mine(self, a: torch.Tensor) -> torch.Tensor:
+        """This plan's rows of a whole-batch tensor."""
+        return a if self.rows is None else a[self.rows]
 
     def start(self, x_init: torch.Tensor,
               y: Optional[torch.Tensor] = None) -> None:
         """Reset the state for a new run from ``x_init`` (and new labels)."""
-        self.x.copy_(x_init)
+        self.x.copy_(self._mine(x_init))
         self.pos.zero_()
         if y is not None:
             if self.y is None:
                 raise ValueError("this sampler was built without labels")
-            self.y.copy_(y)
+            self.y.copy_(self._mine(y))
         self._reset()
 
     def draw(self, generator: Optional[torch.Generator],
@@ -154,9 +169,12 @@ class SamplerPlan:
         """The step's N(0, I) draw into ``z``: from ``generator`` (the bits
         ``torch.randn`` would give), or an injected tensor."""
         if injected is not None:
-            self.z.copy_(injected)
-        else:
+            self.z.copy_(self._mine(injected))
+        elif self.rows is None:
             self.z.normal_(generator=generator)
+        else:
+            self._z_all.normal_(generator=generator)
+            self.z.copy_(self._z_all[self.rows])
 
     def step(self) -> None:
         self._update(_at(self.t, self.pos))
@@ -199,7 +217,8 @@ def _run_plan(plan: SamplerPlan, generator, x_init, noise, num_frames=0,
     ``diffusion/graphed.py``). Returns ``(plan.result(), frames)``, with
     ``frames`` None unless ``num_frames > 0``."""
     dev = plan.schedule.device
-    plan.start(_init_noise(plan.shape, generator, x_init, dev, plan.dtype), y)
+    plan.start(_init_noise(plan.draw_shape, generator, x_init, dev,
+                           plan.dtype), y)
     step = step or plan.step
     frames = None
     if num_frames > 0:

@@ -21,7 +21,7 @@ runs it and ``diffusion/graphed.py`` captures it. Noise comes from a
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
@@ -29,6 +29,53 @@ from superdiff_torch.diffusion.samplers import SamplerPlan, _at, _run_plan
 from superdiff_torch.diffusion.schedules import DiffusionSchedule
 
 MIX_MODES = ("or", "and", "fixed")
+
+
+def stack_eps_fns(apply_fn: Callable, models: Sequence) -> Callable:
+    """Fuse M same-architecture models into ONE batched call.
+
+    Stacks the M modules' parameters and buffers on a leading axis
+    (``torch.func.stack_module_state``) and maps ``apply_fn(module, x, t)``
+    over it with ``torch.func.vmap`` (``functional_call`` on one copy of
+    the architecture), so each sampler step issues one call with an
+    M-major output. Returns ``fn(x, t) -> (M, B, ...)`` for
+    ``superdiff_sample(..., model_fns=fn, num_models=M)``. The stacked
+    parameters are a copy, taken now.
+
+    Inside the map, the convolutions see per-model weights (cuDNN's
+    grouped path), attention goes through kernel B1 once for all M models
+    (its vmap rule folds M into the batch) and the GroupNorm chains
+    through kernel B4 once per model. The CLIs keep sequential per-model
+    calls, as the JAX package does (``PERF.md`` has the two measured on
+    the card)."""
+    import copy
+
+    from torch.func import functional_call, stack_module_state, vmap
+
+    params, buffers = stack_module_state(list(models))
+    base = copy.deepcopy(models[0]).to("meta")
+
+    class _Apply(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.m = base
+
+        def forward(self, x, t):
+            return apply_fn(self.m, x, t)
+
+    wrapper = _Apply()
+    prefixed = ({f"m.{k}": v for k, v in params.items()},
+                {f"m.{k}": v for k, v in buffers.items()})
+
+    def one(p, b, x, t):
+        return functional_call(wrapper, (p, b), (x, t))
+
+    mapped = vmap(one, in_dims=(0, 0, None, None))
+
+    def fn(x, t):
+        return mapped(*prefixed, x, t)
+
+    return fn
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -86,17 +133,27 @@ def _mix_kappa_and(schedule: DiffusionSchedule,
 class SuperDiffPlan(SamplerPlan):
     """Superposed DDPM ancestral sampling across M models, as a plan:
     state ``x`` and ``logq`` (M, B), one draw per step. ``model_fns`` are
-    per-model ``(x, t) -> eps_i``, or ``(x, t, y) -> eps_i`` when the plan
-    holds labels ``y``."""
+    per-model ``(x, t) -> eps_i`` (``(x, t, y) -> eps_i`` when the plan
+    holds labels ``y``), or one stacked ``(x, t[, y]) -> (M, B, ...)``
+    callable (:func:`stack_eps_fns`, ``parallel/ep.py``) with
+    ``num_models=M``. ``rows``: see :class:`SamplerPlan`."""
 
     def __init__(self, schedule, model_fns, shape, mode: str = "or",
                  kappa: Optional[Sequence[float]] = None,
                  temperature: float = 1.0,
                  bias: Optional[Sequence[float]] = None,
-                 y: Optional[torch.Tensor] = None, dtype=torch.float32):
+                 y: Optional[torch.Tensor] = None, dtype=torch.float32,
+                 num_models: Optional[int] = None,
+                 rows: Optional[slice] = None):
         if mode not in MIX_MODES:
             raise ValueError(f"unknown mode {mode!r} (have {MIX_MODES})")
-        M = len(model_fns)
+        if callable(model_fns):
+            if not num_models:
+                raise ValueError("num_models is required with a stacked "
+                                 "model_fns callable")
+            M = num_models
+        else:
+            M = len(model_fns)
         if M < 2:
             raise ValueError("superposition needs >= 2 models")
         if mode == "and" and M != 2:
@@ -109,13 +166,13 @@ class SuperDiffPlan(SamplerPlan):
                                                device=dev)[:, None]
         T = schedule.num_timesteps
         super().__init__(schedule, None, shape, torch.arange(T - 1, -1, -1),
-                         y=y, dtype=dtype)
+                         y=y, dtype=dtype, rows=rows)
         self.model_fns, self.mode, self.temperature = model_fns, mode, temperature
         self.bias = (torch.as_tensor(bias, dtype=torch.float32, device=dev)
                      if bias is not None
                      else torch.zeros((M,), dtype=torch.float32, device=dev))
         self.d = float(math.prod(shape[1:]))
-        self.logq = torch.zeros((M, shape[0]), dtype=torch.float32,
+        self.logq = torch.zeros((M, self.shape[0]), dtype=torch.float32,
                                 device=dev)
 
     def _reset(self):
@@ -128,7 +185,11 @@ class SuperDiffPlan(SamplerPlan):
         M, B = self.logq.shape
         tb = t.expand(B)
         ys = () if self.y is None else (self.y,)
-        eps = torch.stack([fn(x, tb, *ys) for fn in self.model_fns]).to(dtype)
+        if callable(self.model_fns):
+            eps = self.model_fns(x, tb, *ys).to(dtype)
+        else:
+            eps = torch.stack([fn(x, tb, *ys)
+                               for fn in self.model_fns]).to(dtype)
         scores = -eps / _at(s.sqrt_one_minus_alpha_bars, t)
         beta = _at(s.betas, t)
         sqrt_recip_alpha = _at(s.sqrt_recip_alphas, t)
@@ -166,6 +227,7 @@ def superdiff_sample(
         kappa: Optional[Sequence[float]] = None,
         temperature: float = 1.0,
         bias: Optional[Sequence[float]] = None,
+        num_models: Optional[int] = None,
         num_frames: int = 0,
         dtype=torch.float32,
         x_init: Optional[torch.Tensor] = None,
@@ -173,13 +235,16 @@ def superdiff_sample(
     """Superposed DDPM ancestral sampling across M models.
 
     ``model_fns`` is a sequence of per-model ``(x, t) -> eps_i`` functions
-    (bind labels and weights with closures). Returns ``(samples, logq)`` with ``logq`` (M, B) the
-    Itô log-density estimate of each model at the final sample (including
-    the shared Gaussian-prior constant), plus ``(num_frames, B, ...)``
-    frames when ``num_frames > 0``.
+    (bind labels and weights with closures), or ONE stacked function ``(x,
+    t) -> (M, B, ...)`` built by :func:`stack_eps_fns` (pass
+    ``num_models=M`` then). Returns ``(samples, logq)`` with ``logq`` (M, B)
+    the Itô log-density estimate of each model at the final sample
+    (including the shared Gaussian-prior constant), plus ``(num_frames, B,
+    ...)`` frames when ``num_frames > 0``.
     """
     plan = SuperDiffPlan(schedule, model_fns, shape, mode=mode, kappa=kappa,
-                         temperature=temperature, bias=bias, dtype=dtype)
+                         temperature=temperature, bias=bias, dtype=dtype,
+                         num_models=num_models)
     (x, logq), frames = _run_plan(plan, generator, x_init, noise, num_frames)
     if num_frames > 0:
         return x, logq, frames

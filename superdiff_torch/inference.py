@@ -223,3 +223,35 @@ def make_eps_fn(model, label=None,
     ``(x, t, y)`` for ``label="per_sample"``)."""
     return functools.partial(make_eps_fn_p(model, label, schedule=schedule),
                              model)
+
+
+def make_stacked_eps_fn(models, label=None,
+                        schedule: Optional[DiffusionSchedule] = None
+                        ) -> Callable:
+    """One fused ``(x, t) -> (M, B, ...)`` eps call over M modules of the
+    SAME architecture (:func:`superdiff_torch.diffusion.superdiff.
+    stack_eps_fns`; the modules take the place of the JAX function's
+    ``(model, params_list)``). ``label`` follows :func:`make_eps_fn`
+    (None -> the null label); v/x0-headed models are converted to eps as in
+    :func:`make_eps_fn_p` (``schedule`` required for those)."""
+    from superdiff_torch.diffusion.superdiff import stack_eps_fns
+
+    model = models[0]
+    kind = getattr(model, "parameterization", "eps")
+    if kind != "eps" and schedule is None:
+        raise ValueError(
+            f"model predicts {kind!r}; pass schedule= to "
+            "make_stacked_eps_fn so the prediction can be converted to eps")
+    if label == "per_sample":
+        raise ValueError("make_stacked_eps_fn binds one label (or None); "
+                         "per-sample labels are not supported")
+    return stack_eps_fns(make_eps_fn_p(model, label, schedule=schedule),
+                         models)
+
+
+def same_architecture(cfg: Config, cfg2: Config) -> bool:
+    """True when two run configs build identical model graphs (so their
+    parameters can be stacked for the fused superposition call)."""
+    import dataclasses
+
+    return dataclasses.asdict(cfg.model) == dataclasses.asdict(cfg2.model)

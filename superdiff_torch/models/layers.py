@@ -58,8 +58,9 @@ def _same_pad(n: int, k: int, s: int):
 
 
 def conv_nhwc(m: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype,
-              stride: int = 1) -> torch.Tensor:
-    """Flax ``nn.Conv(padding="SAME", dtype=dtype)`` on an NHWC tensor.
+              stride: int = 1, bias: bool = True) -> torch.Tensor:
+    """Flax ``nn.Conv(padding="SAME", dtype=dtype)`` on an NHWC tensor
+    (``bias=False`` leaves the bias out).
 
     SAME padding is computed as Flax does: a 3x3 stride-2 conv on an even
     size pads ``(0, 1)``, not ``(1, 1)``."""
@@ -73,9 +74,13 @@ def conv_nhwc(m: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype,
         xc = F.pad(xc, (pl, pr, pt, pb))
         padding = 0
     w = m.weight.to(dtype)
-    if xc.is_cuda and not w.is_contiguous(memory_format=torch.channels_last):
+    # (a weight mapped by torch.func.vmap, stacked models, has no layout
+    # to ask about)
+    if (xc.is_cuda and not torch._C._functorch.is_batchedtensor(w)
+            and not w.is_contiguous(memory_format=torch.channels_last)):
         w = w.contiguous(memory_format=torch.channels_last)
-    y = F.conv2d(xc, w, m.bias.to(dtype), stride=stride, padding=padding)
+    y = F.conv2d(xc, w, m.bias.to(dtype) if bias else None, stride=stride,
+                 padding=padding)
     return y.permute(0, 2, 3, 1)
 
 
@@ -210,8 +215,14 @@ class ResBlock(nn.Module):
     ``norm_0 -> SiLU -> conv_0``, FiLM from ``emb_proj(SiLU(emb))`` after
     ``norm_1``, ``SiLU -> conv_1`` (zero-initialised), 1x1 ``skip_proj`` when
     the channel count changes. ``dropout > 0`` drops activations between the
-    second SiLU and ``conv_1`` in ``train()`` mode only.
+    second SiLU and ``conv_1`` in ``train()`` mode only. ``tp`` is None, or
+    this rank's ``parallel/tp.py::TPShard`` of a tensor-parallel block:
+    ``conv_0`` / ``norm_1`` hold its output channels, ``conv_1`` its input
+    channels, and the partial sums of ``conv_1`` are summed over the
+    ranks before the bias.
     """
+
+    tp = None
 
     def __init__(self, in_channels: int, out_channels: int, emb_dim: int,
                  compute_dtype=torch.float32, groups: int = 32,
@@ -236,15 +247,25 @@ class ResBlock(nn.Module):
             self.skip_proj = None
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
-        cd, nd = self.compute_dtype, self.norm_dtype
+        cd, nd, tp = self.compute_dtype, self.norm_dtype, self.tp
         h = self.norm_0.film_silu(x, nd)
+        if tp is not None:
+            h = tp.enter(h)
         h = conv_nhwc(self.conv_0, h, cd)
         cond = linear(self.emb_proj, F.silu(emb.float()), torch.float32)
+        if tp is not None:
+            cond = tp.enter(cond)
         scale, shift = cond.chunk(2, dim=-1)                 # (B, C) each
+        if tp is not None:
+            scale, shift = tp.local(scale), tp.local(shift)
         h = self.norm_1.film_silu(h, nd, scale, shift).to(cd)
         if self.dropout > 0.0:
             h = F.dropout(h, self.dropout, training=self.training)
-        h = conv_nhwc(self.conv_1, h, cd)
+        if tp is None:
+            h = conv_nhwc(self.conv_1, h, cd)
+        else:
+            h = (tp.reduce(conv_nhwc(self.conv_1, h, cd, bias=False))
+                 + self.conv_1.bias.to(cd))
         if self.skip_proj is not None:
             x = conv_nhwc(self.skip_proj, x, cd)
         return (x + h).to(cd)

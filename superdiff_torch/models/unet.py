@@ -1,6 +1,6 @@
 """CondUNet — the flagship class-conditional DDPM UNet, as an ``nn.Module``.
 
-Port of ``superdiff_tpu/models/unet.py`` (``stage="all"``). Topology:
+Port of ``superdiff_tpu/models/unet.py``. Topology:
 stem conv, ``len(channel_mults)`` levels of FiLM ResBlocks with stride-2
 downsampling between them, self-attention at the feature-map sides in
 ``attn_resolutions``, middle ResBlock -> attention -> ResBlock, a mirrored
@@ -12,7 +12,9 @@ Submodule names are the Flax names (``time_mlp.dense_0``, ``class_emb``,
 ``stem``, ``down_{l}_block_{b}.norm_0``, ``down_{l}_attn_{b}.qkv``,
 ``down_{l}_downsample.conv``, ``mid_block_0``, ``mid_attn``,
 ``up_{l}_upsample.conv``, ``out_norm``, ``out_conv``), so the weight
-bridge is mechanical and a split by top-level name still works.
+bridge is mechanical and a split by top-level name still works: the two
+pipeline stages (``forward(..., stage="down" | "up")``) touch disjoint sets
+of top-level modules, the subsets of ``parallel/pp.py::split_params``.
 
 Unlike the shape-polymorphic Flax module, a torch module creates its
 parameters up front, and which levels carry attention depends on the image
@@ -187,11 +189,9 @@ class CondUNet(nn.Module):
             return checkpoint(block, *args, use_reentrant=False)
         return block(*args)
 
-    def forward(self, x: torch.Tensor, t: torch.Tensor,
-                y: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """``x (B, H, W, C)``, ``t (B,)`` int, ``y (B,)`` int -> ``(B, H, W,
-        out_channels)`` float32."""
-        cd, nd, p = self.compute_dtype, self.norm_dtype, self.pixel_shuffle
+    def _down_path(self, x, t, y):
+        """Embeddings, stem and down path: ``(h, skips, emb)``."""
+        cd, p = self.compute_dtype, self.pixel_shuffle
         if x.shape[1] != self.resolution or x.shape[2] != self.resolution:
             raise ValueError(f"model built for {self.resolution}^2 inputs, "
                              f"got {tuple(x.shape)}")
@@ -215,6 +215,30 @@ class CondUNet(nn.Module):
             else:
                 h = getattr(self, name)(h)
             skips.append(h)
+        return h, skips, emb
+
+    def forward(self, x: Optional[torch.Tensor], t: Optional[torch.Tensor],
+                y: Optional[torch.Tensor] = None, stage: str = "all",
+                pp_state=None):
+        """``x (B, H, W, C)``, ``t (B,)`` int, ``y (B,)`` int -> ``(B, H, W,
+        out_channels)`` float32 (``stage="all"``), or one pipeline stage:
+        ``stage="down"`` runs the embeddings, stem and down path and returns
+        the payload ``(h, skips, emb)``; ``stage="up"`` takes that payload as
+        ``pp_state`` (``x``, ``t``, ``y`` may be None) and runs the middle,
+        up path and head. Each stage reads only its own top-level modules."""
+        if stage not in ("all", "down", "up"):
+            raise ValueError(f"stage must be all/down/up, got {stage!r}")
+        cd, nd, p = self.compute_dtype, self.norm_dtype, self.pixel_shuffle
+        if stage == "up":
+            if pp_state is None:
+                raise ValueError('stage="up" requires pp_state='
+                                 '(h, skips, emb) from stage="down"')
+            h, skips, emb = pp_state
+            skips = list(skips)
+        else:
+            h, skips, emb = self._down_path(x, t, y)
+            if stage == "down":
+                return h, tuple(skips), emb
 
         h = self._block("mid_block_0", h, emb)
         h = self._block("mid_attn", h)

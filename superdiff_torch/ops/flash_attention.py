@@ -27,7 +27,10 @@ are built with (``_FWD_TILE``, ``_BWD_TILE``), as measured by
 
 A CUDA tensor launches the kernels or raises; a CPU tensor takes the plain
 versions (:func:`_flash_forward_plain`, :func:`_flash_backward_plain`), the
-same functions in plain PyTorch with the kernels' roundings. ``launches``,
+same functions in plain PyTorch with the kernels' roundings. Under
+``torch.func.vmap`` (stacked models) the forward goes through the
+registered op ``superdiff::flash_attn_fwd``, whose vmap rule folds the
+mapped axis into the batch: one launch for all mapped calls. ``launches``,
 ``bwd_dq_launches`` and ``bwd_dkv_launches`` count kernel launches;
 ``captured_by_shape`` counts the forward launches among them that were
 recorded into a CUDA graph (made under stream capture), which the graph's
@@ -246,15 +249,65 @@ def _flash_forward_plain(q, k, v):
     return out.to(q.dtype), lse.reshape(B * H, S)
 
 
-def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
-    """``(out (B,S,H,D), lse (B*H, S) f32)``; kernel on CUDA, plain on CPU."""
-    _check(q, k, v)
+def _flash_forward_impl(q, k, v):
     if q.is_cuda:
         return _flash_forward_cuda(q, k, v)
     if q.device.type != "cpu":
         raise ValueError(f"flash attention runs on cuda or cpu, not "
                          f"{q.device}")
     return _flash_forward_plain(q, k, v)
+
+
+def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """``(out (B,S,H,D), lse (B*H, S) f32)``; kernel on CUDA, plain on CPU.
+    Inside ``torch.func.vmap`` the call goes through the registered op
+    ``superdiff::flash_attn_fwd``, whose vmap rule folds the mapped axis
+    into the batch."""
+    _check(q, k, v)
+    if any(map(_batched, (q, k, v))):
+        return torch.ops.superdiff.flash_attn_fwd(q, k, v)
+    return _flash_forward_impl(q, k, v)
+
+
+def _batched(a) -> bool:
+    """Whether ``a`` is a tensor mapped by ``torch.func.vmap``."""
+    return torch._C._functorch.is_batchedtensor(a)
+
+
+@torch.library.custom_op("superdiff::flash_attn_fwd", mutates_args=())
+def _flash_attn_fwd_op(q: torch.Tensor, k: torch.Tensor,
+                       v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """B1 (or its plain version on the CPU) as a registered op, so that it
+    runs under ``torch.func.vmap`` (stacked models)."""
+    out, lse = _flash_forward_impl(q, k, v)
+    return out, lse
+
+
+@_flash_attn_fwd_op.register_fake
+def _(q, k, v):
+    B, S, H, _ = q.shape
+    return (torch.empty_like(q, memory_format=torch.contiguous_format),
+            q.new_empty((B * H, S), dtype=torch.float32))
+
+
+def _flash_attn_fwd_vmap(info, in_dims, q, k, v):
+    """Fold the mapped axis into the batch: ``(M, B, S, H, D) -> (M*B, S, H,
+    D)``, one launch for the M mapped calls. Exact: attention has no
+    weights, and each (batch, head) row is computed alone."""
+    M = info.batch_size
+
+    def fold(a, d):
+        a = a.expand(M, *a.shape) if d is None else a.movedim(d, 0)
+        return a.reshape(M * a.shape[1], *a.shape[2:])
+
+    out, lse = _flash_attn_fwd_op(*(fold(a, d)
+                                    for a, d in zip((q, k, v), in_dims)))
+    return (out.view(M, -1, *out.shape[1:]),
+            lse.view(M, -1, lse.shape[-1])), (0, 0)
+
+
+torch.library.register_vmap("superdiff::flash_attn_fwd",
+                            _flash_attn_fwd_vmap)
 
 
 # ---------------------------------------------------------------- backward
@@ -391,13 +444,18 @@ def _bwd_delta(o, g):
 
 
 def _flash_backward_cuda(q, k, v, o, lse, g):
+    return _bwd_cuda(q, k, v, g, lse, _bwd_delta(o, g))
+
+
+def _bwd_cuda(q, k, v, g, lse, delta):
+    """The dQ and dK/dV kernels on given ``lse`` and ``delta``."""
     if not kernel_supports(q):
         raise ValueError(f"flash kernel takes D in {SUPPORTED_HEAD_DIMS} and "
                          f"bfloat16/float32, got D={q.shape[-1]} {q.dtype}")
     _check_kernel_layout(q=q, k=k, v=v)
     if not _kernel_layout_ok(g):
         g = g.contiguous()                   # the one explicit copy
-    delta, lse = _bwd_delta(o, g), lse.contiguous()
+    lse, delta = lse.contiguous(), delta.contiguous()
     return (_flash_bwd_dq_cuda(q, k, v, g, lse, delta),
             *_flash_bwd_dkv_cuda(q, k, v, g, lse, delta))
 
@@ -433,6 +491,23 @@ def _flash_bwd_dkv_plain(q, k, v, g, lse, delta):
 def _flash_backward_plain(q, k, v, o, lse, g):
     """Plain PyTorch version of the whole backward, ``(dq, dk, dv)``."""
     delta = _bwd_delta(o, g)
+    return (_flash_bwd_dq_plain(q, k, v, g, lse, delta),
+            *_flash_bwd_dkv_plain(q, k, v, g, lse, delta))
+
+
+def flash_backward_hop(q, k, v, g, lse, delta):
+    """``(dq, dk, dv)`` of one block of the attention matrix: the queries
+    ``q`` against the keys and values ``k``, ``v`` (the same shape), with
+    the softmax's row ``lse`` and ``delta = rowsum(dO * O)`` (both ``(B*H,
+    S)`` float32) taken from the whole row, which may span other blocks:
+    the two backward kernels on CUDA, their plain versions on the CPU
+    (context parallelism's backward hop, ``parallel/cp.py``)."""
+    _check(q, k, v)
+    if q.is_cuda:
+        return _bwd_cuda(q, k, v, g, lse, delta)
+    if q.device.type != "cpu":
+        raise ValueError(f"flash attention runs on cuda or cpu, not "
+                         f"{q.device}")
     return (_flash_bwd_dq_plain(q, k, v, g, lse, delta),
             *_flash_bwd_dkv_plain(q, k, v, g, lse, delta))
 

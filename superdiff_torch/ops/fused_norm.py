@@ -34,7 +34,10 @@ for batches of x above 32 MB). ``launches`` counts B4
 calls (one per call, whatever the regime), ``launches_by_shape`` by ``(H,
 W, C, G, film, x's dtype name)``, and ``captured_by_shape`` those of them
 recorded into a CUDA graph (made under stream capture), which the graph's
-replays launch again unseen here.
+replays launch again unseen here. Under ``torch.func.vmap`` (stacked
+models) the policy mode goes through the registered op
+``superdiff::gn_film_silu``, whose vmap rule launches B4 once per mapped
+model.
 """
 
 from __future__ import annotations
@@ -449,8 +452,54 @@ def gn_film_silu_policy(x: torch.Tensor,
     wants_grad = torch.is_grad_enabled() and any(
         a is not None and a.requires_grad
         for a in (x, gamma, beta, scale, shift))
-    if x.is_cuda and not wants_grad:
+    if wants_grad:
+        return gn_film_silu_policy_plain(x, gamma, beta, num_groups,
+                                         norm_dtype, scale, shift, eps)
+    if any(a is not None and torch._C._functorch.is_batchedtensor(a)
+           for a in (x, gamma, beta, scale, shift)):
+        return torch.ops.superdiff.gn_film_silu(x, gamma, beta, scale, shift,
+                                                num_groups, norm_dtype, eps)
+    return _gn_film_silu_policy_impl(x, gamma, beta, scale, shift,
+                                     num_groups, norm_dtype, eps)
+
+
+def _gn_film_silu_policy_impl(x, gamma, beta, scale, shift, num_groups,
+                              norm_dtype, eps):
+    if x.is_cuda:
         return _launch(x.contiguous(), gamma, beta, num_groups, scale, shift,
                        eps, norm_dtype, policy=True)
     return gn_film_silu_policy_plain(x, gamma, beta, num_groups, norm_dtype,
                                      scale, shift, eps)
+
+
+@torch.library.custom_op("superdiff::gn_film_silu", mutates_args=())
+def _gn_film_silu_op(x: torch.Tensor, gamma: torch.Tensor,
+                     beta: torch.Tensor, scale: Optional[torch.Tensor],
+                     shift: Optional[torch.Tensor], num_groups: int,
+                     norm_dtype: torch.dtype, eps: float) -> torch.Tensor:
+    """Policy-mode B4 (or its plain chain on the CPU) as a registered op, so
+    that it runs under ``torch.func.vmap`` (stacked models)."""
+    return _gn_film_silu_policy_impl(x, gamma, beta, scale, shift,
+                                     num_groups, norm_dtype, eps)
+
+
+@_gn_film_silu_op.register_fake
+def _(x, gamma, beta, scale, shift, num_groups, norm_dtype, eps):
+    return x.new_empty(x.shape, dtype=norm_dtype)
+
+
+def _gn_film_silu_vmap(info, in_dims, x, gamma, beta, scale, shift,
+                       num_groups, norm_dtype, eps):
+    """One launch per mapped model: its gamma / beta (and FiLM) differ, and
+    each model's output keeps the bits of its own unmapped call."""
+    def pick(a, d, m):
+        return a if a is None or d is None else a.select(d, m)
+
+    outs = [_gn_film_silu_op(*(pick(a, d, m) for a, d in zip(
+                (x, gamma, beta, scale, shift), in_dims[:5])),
+             num_groups, norm_dtype, eps)
+            for m in range(info.batch_size)]
+    return torch.stack(outs), 0
+
+
+torch.library.register_vmap("superdiff::gn_film_silu", _gn_film_silu_vmap)

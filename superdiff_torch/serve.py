@@ -31,6 +31,13 @@ With a second model (``model2=``) the service also serves
 ``method="superdiff"`` and returns the per-sample Itô log-densities in the
 response's ``logq`` field.
 
+Data parallelism (``mesh=``, a mesh of more than one process): rank 0 runs
+the HTTP app and the coalescing; it broadcasts each coalesced batch's spec,
+labels and seed to the other ranks, which sit in :meth:`follow` and serve
+their rows of it from their own CUDA graphs; every rank draws the whole
+batch's noise and keeps its rows, and rank 0 gathers the rows, so a seeded
+request gives the single-process bits.
+
 Usage (see ``cli/serve.py`` for flags)::
 
     python -m superdiff_torch.cli.serve --run-dir RUN --port 8000
@@ -129,7 +136,8 @@ class SamplerService:
     def __init__(self, model, schedule, resolution: int, conditional: bool,
                  batch_size: int = 16, max_wait_ms: float = 20.0,
                  autostart: bool = True, model2=None,
-                 t_spacing: str = "leading", clip_x0: bool = True):
+                 t_spacing: str = "leading", clip_x0: bool = True,
+                 mesh=None):
         if t_spacing not in ("leading", "trailing"):
             raise ValueError(f"t_spacing must be leading/trailing, got "
                              f"{t_spacing!r}")
@@ -146,6 +154,12 @@ class SamplerService:
         self._conditional = bool(conditional)
         self._B = int(batch_size)
         self._max_wait = max_wait_ms / 1e3
+        self._mesh = mesh
+        self._closed = False
+        self._rows = None
+        if mesh is not None:
+            from superdiff_torch.parallel.mesh import local_rows
+            self._rows = local_rows(self._B, mesh)
         self._null = int(getattr(model, "null_label", 0))
         self._num_classes = int(getattr(model, "num_classes", 0) or 0)
         self._pool = (torch.cuda.graph_pool_handle()
@@ -252,9 +266,40 @@ class SamplerService:
         self._stop.set()
         if self._thread is not None:
             self._thread.join(timeout=5)
+        if self._group() is not None and not self._closed:
+            self._broadcast(None)           # releases the followers
+        self._closed = True
+
+    def follow(self) -> int:
+        """The loop of a rank other than 0 under a mesh: serve its rows of
+        each batch rank 0 broadcasts, until rank 0 closes. Returns the
+        number of batches served."""
+        n = 0
+        while True:
+            msg = self._broadcast(None)
+            if msg is None:
+                return n
+            spec, labels, seed = msg
+            self._launch(spec, labels, seed)
+            n += 1
+
+    def _group(self):
+        return None if self._mesh is None else self._mesh.group("data")
+
+    def _broadcast(self, msg):
+        """``msg`` from rank 0 of the data group to every rank of it."""
+        import torch.distributed as dist
+
+        group = self._group()
+        box = [msg]
+        dist.broadcast_object_list(box, src=dist.get_global_rank(group, 0),
+                                   group=group)
+        return box[0]
 
     # ------------------------------------------------------------ worker
     def _run(self) -> None:
+        if self._device.type == "cuda":
+            torch.cuda.set_device(self._device)
         while not self._stop.is_set():
             first = self._next_request(block=True, timeout=0.1)
             if first is None:
@@ -319,6 +364,8 @@ class SamplerService:
                 else int.from_bytes(os.urandom(4), "little"))
 
         try:
+            if self._group() is not None:
+                self._broadcast((first.spec, labels, int(seed)))
             imgs, logq = self._launch(first.spec, labels, int(seed))
         except Exception as e:
             for r in batch:
@@ -358,10 +405,10 @@ class SamplerService:
         if spec.method == "superdiff":
             plan = SuperDiffPlan(schedule, [self._eps_fn(self._model),
                                             self._eps_fn(self._model2)],
-                                 shape, mode=spec.mode, y=y)
+                                 shape, mode=spec.mode, y=y, rows=self._rows)
         else:
             kw = dict(y=y, guidance_scale=spec.guidance,
-                      null_label=self._null)
+                      null_label=self._null, rows=self._rows)
             eps = self._eps_fn(self._model)
             if spec.method == "ddim":
                 plan = DDIMPlan(schedule, eps, shape, num_steps=spec.steps,
@@ -394,6 +441,11 @@ class SamplerService:
              if self._conditional else None)
         out = fn(g, y=y, x_init=x_init, noise=noise)
         x, logq = out if spec.method == "superdiff" else (out, None)
+        if self._mesh is not None:
+            from superdiff_torch.parallel.mesh import gather_rows
+            x = gather_rows(x, self._mesh)
+            logq = None if logq is None else gather_rows(logq, self._mesh,
+                                                         dim=1)
         imgs = x.float().cpu().numpy()
         logq = None if logq is None else logq.float().cpu().numpy()
         with self._lock:

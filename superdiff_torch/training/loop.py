@@ -1,8 +1,11 @@
 """The training engine: epoch loop, metrics, checkpoints, periodic samples.
 
-Port of ``superdiff_tpu/training/loop.py`` for one device:
+Port of ``superdiff_tpu/training/loop.py``:
 
-- one eager train step per batch, EMA maintained inside the step;
+- one eager train step per batch, EMA maintained inside the step; in a
+  process group (``parallel/mesh.py``), a data-parallel step over a mesh
+  of every rank, each rank on its rows of the global batch, and only rank
+  0 writing files (config, metrics, checkpoints, figures);
 - checkpoints of the full state with resume (``checkpoint.py``);
 - metrics reach jsonl / TensorBoard / wandb;
 - validation on the EMA parameters over a fixed stream, with the best-val
@@ -41,6 +44,8 @@ from superdiff_torch.diffusion import ddpm_sample, make_schedule
 from superdiff_torch.diffusion.process import eps_from_pred
 from superdiff_torch.models.presets import (
     model_from_config, preset_for_resolution)
+from superdiff_torch.parallel.mesh import (
+    is_main_process, make_mesh, shard_batch)
 from superdiff_torch.training.state import create_train_state, make_optimizer
 from superdiff_torch.training.steps import make_eval_step, make_train_step
 from superdiff_torch.utils.env import resolve_paths, set_global_seeds
@@ -110,9 +115,19 @@ def train(cfg: Config,
                            "available (pass device='cpu' explicitly)")
     if not cfg.model.preset:
         cfg.model.preset = preset_for_resolution(t.resolution)
+    import torch.distributed as dist
+
+    mesh = None
+    if dist.is_initialized():
+        mesh = make_mesh(device=device)
+        if t.batch_size % mesh.shape["data"]:
+            raise ValueError(f"batch_size {t.batch_size} not divisible by "
+                             f"{mesh.shape['data']} devices")
+    main = is_main_process()
     paths = resolve_paths(cfg).make_all()
-    init_logger(paths.log_dir, stdout=cfg.logging.stdout)
-    save_config(cfg, os.path.join(paths.output_dir, "config.yaml"))
+    if main:
+        init_logger(paths.log_dir, stdout=cfg.logging.stdout)
+        save_config(cfg, os.path.join(paths.output_dir, "config.yaml"))
     generator = set_global_seeds(t.seed, device=device)
 
     # data
@@ -142,7 +157,7 @@ def train(cfg: Config,
     logger.info("model %s: %s params", cfg.model.preset, f"{n_params:,}")
 
     parameterization = getattr(cfg.model, "parameterization", "eps")
-    step_fn = make_train_step(schedule, conditional=conditional,
+    step_fn = make_train_step(schedule, mesh=mesh, conditional=conditional,
                               cfg_drop_prob=t.cfg_drop_prob,
                               null_label=getattr(model, "null_label", 0),
                               loss_type=t.loss_type,
@@ -156,7 +171,7 @@ def train(cfg: Config,
     # validation: EMA loss on a fixed stream every eval_every epochs; the
     # best-val step is checkpointed separately so a late-training regression
     # never evicts the best model.
-    eval_fn = make_eval_step(schedule, conditional=conditional,
+    eval_fn = make_eval_step(schedule, mesh=mesh, conditional=conditional,
                              loss_type=t.loss_type,
                              weighting=t.loss_weighting,
                              min_snr_gamma=t.min_snr_gamma,
@@ -188,12 +203,16 @@ def train(cfg: Config,
         for j, vb in enumerate(batches):
             if t.eval_batches and j >= t.eval_batches:
                 break
+            if mesh is not None:
+                vb = shard_batch(vb, mesh, local=dm is not None
+                                 and dm.resolve_shard() is not None)
             n = int(vb["image"].shape[0])
-            if n != B:
+            want = B // (mesh.shape["data"] if mesh is not None else 1)
+            if n != want:
                 # wrap-pad a short batch up to B (deterministic duplicates),
                 # so a val split smaller than the batch still has a curve
-                reps = -(-B // n)
-                vb = {k: v.repeat((reps,) + (1,) * (v.ndim - 1))[:B]
+                reps = -(-want // n)
+                vb = {k: v.repeat((reps,) + (1,) * (v.ndim - 1))[:want]
                       for k, v in vb.items()}
             losses.append(eval_fn(state, vb))
         if not losses:
@@ -212,11 +231,11 @@ def train(cfg: Config,
 
     metrics_log = MetricsLogger(
         jsonl_path=os.path.join(paths.output_dir, "metrics.jsonl")
-        if cfg.logging.use_jsonl else None,
+        if cfg.logging.use_jsonl and main else None,
         tensorboard_dir=paths.tensorboard_dir
-        if cfg.logging.use_tensorboard else None,
+        if cfg.logging.use_tensorboard and main else None,
         wandb_project=cfg.logging.wandb_project
-        if cfg.logging.use_wandb else None,
+        if cfg.logging.use_wandb and main else None,
         wandb_run_name=f"{cfg.experiment_id}_{cfg.run_id}",
         wandb_dir=paths.wandb_dir)
 
@@ -278,9 +297,12 @@ def train(cfg: Config,
             for i, batch in enumerate(batches):
                 if t.steps_per_epoch and i >= t.steps_per_epoch:
                     break
+                if mesh is not None:
+                    batch = shard_batch(batch, mesh, local=dm is not None
+                                        and dm.resolve_shard() is not None)
                 if not conditional:
                     batch = {"image": batch["image"]}
-                if epoch == start_epoch and i == profile_after:
+                if epoch == start_epoch and i == profile_after and main:
                     from torch.profiler import ProfilerActivity, profile
                     acts = [ProfilerActivity.CPU]
                     if device.type == "cuda":
@@ -296,7 +318,8 @@ def train(cfg: Config,
                         and i >= profile_after + cfg.logging.profile_steps):
                     _stop_profiler()
                 if _stopping():
-                    ckpt.save(state, force=True)
+                    if main:
+                        ckpt.save(state, force=True)
                     stopped = True
                     break
             _stop_profiler()   # epoch shorter than the trace window
@@ -334,7 +357,7 @@ def train(cfg: Config,
                     if _every(t.log_every, epoch):
                         logger.info("epoch %d: val_loss=%.4f%s", epoch + 1,
                                     val_loss, " (best)" if improved else "")
-                    if improved:
+                    if improved and main:
                         # saves are synchronous here, so every improvement
                         # is tagged (the JAX loop defers behind async writes)
                         best_val, best_val_step = val_loss, state.step
@@ -349,10 +372,11 @@ def train(cfg: Config,
                                        "val_loss": best_val}, f)
                         ckpt_best.save(state, force=True)
 
-            if _every(t.save_every, epoch):
+            if _every(t.save_every, epoch) and main:
                 ckpt.save(state)
 
-            if _every(t.vis_every, epoch) and last_real is not None:
+            if (_every(t.vis_every, epoch) and last_real is not None
+                    and main):
                 n_vis = min(8, B)
                 ema = state.ema_model       # float32, not the trained copy
 
@@ -376,14 +400,15 @@ def train(cfg: Config,
                                  f"samples_epoch{epoch + 1}.png"))
 
         if all_losses:
-            if t.vis_every > 0:
+            if t.vis_every > 0 and main:
                 save_loss_curve(all_losses, os.path.join(paths.output_dir,
                                                          "loss_curve.png"))
             summary["final_loss"] = all_losses[-1]
             summary["mean_last_epoch_loss"] = (
                 avg if not stopped else float(np.mean(
                     torch.stack(epoch_losses).float().cpu().tolist())))
-        ckpt.save(state, force=True)
+        if main:
+            ckpt.save(state, force=True)
         if ckpt_best is not None:
             summary["best_val_loss"] = best_val
             summary["best_val_step"] = float(best_val_step)

@@ -82,12 +82,16 @@ class Optimizer:
 
     @torch.no_grad()
     def update(self, params: List[torch.Tensor], grads: List[torch.Tensor],
-               opt_state: dict) -> torch.Tensor:
+               opt_state: dict,
+               grad_norm: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Apply one update in place (``params``, ``opt_state``; ``grads``
         are scaled in place when clipped). Returns the global norm of the
-        gradients as they came in (float32 scalar tensor)."""
-        grad_norm = torch.linalg.vector_norm(
-            torch.stack(torch._foreach_norm(grads)))
+        gradients as they came in (float32 scalar tensor): ``grad_norm``
+        when given (the norm over every rank's shards, where the lists hold
+        one rank's shards), else the norm of ``grads``."""
+        if grad_norm is None:
+            grad_norm = torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(grads)))
         if self.grad_clip_norm is not None:
             m = self.grad_clip_norm
             factor = torch.where(grad_norm < m, torch.ones_like(grad_norm),

@@ -885,3 +885,127 @@ def test_smallcnn_gradcam_through_b4_matches_plain_on_card(cuda,
     want, wpred = compute_gradcam(model, img)
     assert pred == wpred
     assert abs(cam - want).max() < 1e-5
+
+
+@pytest.mark.cuda
+def test_stacked_call_runs_b1_and_b4_through_their_ops_in_a_graph_on_card(
+        cuda):
+    """Two toy CondUNets stacked by ``stack_eps_fns``: one eager call
+    launches B1 once per attention block (both models' rows in one launch)
+    and B4 once per chain per model; the call captures in a CUDA graph and
+    its replay gives the eager bits; the stacked output is within bf16
+    rounding of the two sequential calls."""
+    from superdiff_torch.inference import make_eps_fn, make_stacked_eps_fn
+    from superdiff_torch.models.unet import CondUNet
+
+    cfg = dict(base_channels=32, channel_mults=(1, 2), num_res_blocks=1,
+               attn_resolutions=(16,), num_heads=2, num_classes=2,
+               time_emb_dim=32, groups=8, compute_dtype=torch.bfloat16,
+               norm_dtype=torch.bfloat16)
+    models = [CondUNet(resolution=32, device=cuda, **cfg).init_parameters(s)
+              .eval() for s in (1, 2)]
+    with torch.no_grad():           # no layer left at its zero init
+        for m in models:
+            for p in m.parameters():
+                p.add_(0.02 * torch.randn_like(p))
+    fn_ = make_stacked_eps_fn(models, label=1)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((4, 32, 32, 1), device=cuda, generator=g)
+    t = torch.tensor([10, 200, 500, 900], device=cuda)
+    fa.reset_launches()
+    fn.reset_launches()
+    with torch.no_grad():
+        eager = fn_(x, t)
+        torch.cuda.synchronize()
+        n_attn = sum(1 for n, _ in models[0].named_children() if "attn" in n)
+        assert fa.launches == n_attn
+        assert fn.launches == 2 * (2 * sum(
+            1 for n, _ in models[0].named_children() if "block" in n) + 1)
+        two = torch.stack([make_eps_fn(m, 1)(x, t) for m in models])
+        graph = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn_(x, t)
+        torch.cuda.current_stream().wait_stream(side)
+        with torch.cuda.graph(graph):
+            out = fn_(x, t)
+        graph.replay()
+        torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    rel = (torch.linalg.norm((eager - two).float())
+           / torch.linalg.norm(two.float())).item()
+    assert rel < 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ring_hops_match_the_whole_sequence_on_card(cuda, dtype):
+    """parallel/cp.py's hop arithmetic in one process over 4 chunks: B1 per
+    key/value chunk merged by lse, B2/B3 per chunk with the merged lse and
+    delta, against B1/B2/B3 on the whole sequence."""
+    from superdiff_torch.parallel import cp
+
+    B, S, H, D, n = 2, 512, 2, 64, 4
+    per = S // n
+    q, k, v, g = _fused_qkv(B, S, H, D, dtype, cuda) + [
+        torch.randn((B, S, H, D), device=cuda).to(dtype)]
+    chunk = lambda a, i: a[:, i * per:(i + 1) * per]
+    outs, dq = [], []
+    dk = [torch.zeros((B, per, H, D), device=cuda) for _ in range(n)]
+    dv = [torch.zeros((B, per, H, D), device=cuda) for _ in range(n)]
+    for i in range(n):
+        out = lse = None
+        for j in range(n):
+            s = (i + j) % n
+            out, lse = cp.merge(out, lse, *fa._flash_forward(
+                chunk(q, i), chunk(k, s), chunk(v, s)))
+        out = out.to(dtype)
+        outs.append(out)
+        delta = fa._bwd_delta(out, chunk(g, i))
+        acc = torch.zeros((B, per, H, D), device=cuda)
+        for j in range(n):
+            s = (i + j) % n
+            a, b, c = fa.flash_backward_hop(chunk(q, i), chunk(k, s),
+                                            chunk(v, s), chunk(g, i), lse,
+                                            delta)
+            acc += a.float()
+            dk[s] += b.float()
+            dv[s] += c.float()
+        dq.append(acc)
+    ref_out, ref_lse = fa._flash_forward(q, k, v)
+    ref = fa._flash_backward(q, k, v, ref_out, ref_lse, g)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(torch.cat(outs, 1).float(), ref_out.float(),
+                               rtol=tol, atol=tol)
+    for got, want in zip((dq, dk, dv), ref):
+        got = torch.cat(got, 1)
+        assert ((got - want.float()).abs().max()
+                <= tol * want.float().abs().max())
+
+
+@pytest.mark.cuda
+def test_pipeline_on_one_card_matches_the_full_call(cuda):
+    from superdiff_torch.models.unet import CondUNet
+    from superdiff_torch.parallel import pp
+
+    model = CondUNet(resolution=32, device=cuda, base_channels=32,
+                     channel_mults=(1, 2), num_res_blocks=1,
+                     attn_resolutions=(16,), num_heads=2, num_classes=2,
+                     time_emb_dim=32, groups=8).init_parameters(3).eval()
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.02 * torch.randn_like(p))
+    fn_ = pp.make_pp_denoiser(model, devices=(cuda, cuda),
+                              num_microbatches=2)
+    x = torch.randn((4, 32, 32, 1), device=cuda)
+    t = torch.tensor([1, 50, 300, 999], device=cuda)
+    y = torch.tensor([0, 1, 2, 1], device=cuda)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False   # float32 convolutions
+    try:
+        with torch.no_grad():
+            torch.testing.assert_close(fn_(x, t, y), model(x, t, y),
+                                       rtol=1e-4, atol=1e-4)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
