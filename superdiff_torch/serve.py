@@ -27,6 +27,11 @@ Design on the card:
   alone, so its result depends only on (spec, num, label, seed, batch
   size); an unseeded batch draws a fresh seed.
 
+Timing. ``stats["device_ms_total"]`` sums each batch's device time: two
+CUDA events on the worker's stream around the batch's draws and replays,
+read after the copy to the host has waited for them (on the CPU, the
+host's time of the eager steps).
+
 With a second model (``model2=``) the service also serves
 ``method="superdiff"`` and returns the per-sample Itô log-densities in the
 response's ``logq`` field.
@@ -250,9 +255,9 @@ class SamplerService:
     def warmup(self, spec: Optional[SampleSpec] = None) -> float:
         """Capture + run one batch of ``spec`` so the first real request
         pays steady-state latency. Returns seconds spent."""
-        tic = time.time()
+        tic = time.perf_counter()
         self.sample(1, spec=spec, seed=0)
-        return time.time() - tic
+        return time.perf_counter() - tic
 
     def step_once(self, block: bool = True) -> int:
         """Drain one coalesced batch (test/diagnostic path). Returns the
@@ -341,11 +346,11 @@ class SamplerService:
                 else:
                     kept.append(r)
             self._pending = kept
-            deadline = time.time() + self._max_wait
-            while slots < self._B and time.time() < deadline:
+            deadline = time.perf_counter() + self._max_wait
+            while slots < self._B and time.perf_counter() < deadline:
                 try:
                     nxt = self._q.get(
-                        timeout=max(0.0, deadline - time.time()))
+                        timeout=max(0.0, deadline - time.perf_counter()))
                 except queue.Empty:
                     break
                 if (nxt.seed is None and nxt.spec == first.spec
@@ -435,11 +440,21 @@ class SamplerService:
         ``x_init`` / ``noise`` replace the generator's draws (the JAX-parity
         tests inject JAX's)."""
         fn = self._get_jit(spec)
-        tic = time.time()
         g = torch.Generator(device=self._device).manual_seed(seed)
         y = (torch.from_numpy(labels).to(self._device, torch.long)
              if self._conditional else None)
+        cuda = self._device.type == "cuda"
+        if cuda:
+            start, stop = (torch.cuda.Event(enable_timing=True)
+                           for _ in range(2))
+            start.record()
+        else:
+            tic = time.perf_counter()
         out = fn(g, y=y, x_init=x_init, noise=noise)
+        if cuda:
+            stop.record()
+        else:
+            device_ms = (time.perf_counter() - tic) * 1e3
         x, logq = out if spec.method == "superdiff" else (out, None)
         if self._mesh is not None:
             from superdiff_torch.parallel.mesh import gather_rows
@@ -448,8 +463,10 @@ class SamplerService:
                                                          dim=1)
         imgs = x.float().cpu().numpy()
         logq = None if logq is None else logq.float().cpu().numpy()
+        if cuda:    # the copy waited for the stream: ``stop`` has passed
+            device_ms = start.elapsed_time(stop)
         with self._lock:
-            self.stats["device_ms_total"] += (time.time() - tic) * 1e3
+            self.stats["device_ms_total"] += device_ms
         return imgs, logq
 
 

@@ -48,6 +48,7 @@ from superdiff_torch.parallel.mesh import (
     is_main_process, make_mesh, shard_batch)
 from superdiff_torch.training.state import create_train_state, make_optimizer
 from superdiff_torch.training.steps import make_eval_step, make_train_step
+from superdiff_torch.utils import profiling
 from superdiff_torch.utils.env import resolve_paths, set_global_seeds
 from superdiff_torch.utils.logger import init_logger
 from superdiff_torch.utils.metrics import MetricsLogger
@@ -106,7 +107,8 @@ def train(cfg: Config,
     the signal path (tests, schedulers).
 
     Profiling: ``logging.profile_steps = N`` traces steps 2..2+N of the first
-    epoch with ``torch.profiler`` into ``<output>/profile/trace.json``.
+    epoch with ``torch.profiler`` into ``<output>/profile/trace.json``
+    (``profiling.trace``: the train step's spans name its phases there).
     """
     t = cfg.training
     device = torch.device(device)
@@ -266,16 +268,12 @@ def train(cfg: Config,
             torch.cuda.synchronize(device)
 
     profile_after = 1 if cfg.logging.profile_steps > 0 else -1
-    profiler = None
+    profiler = None           # an open ``profiling.trace`` of a few steps
 
     def _stop_profiler():
         nonlocal profiler
         if profiler is not None:
-            _sync()
             profiler.__exit__(None, None, None)
-            out = os.path.join(paths.output_dir, "profile")
-            os.makedirs(out, exist_ok=True)
-            profiler.export_chrome_trace(os.path.join(out, "trace.json"))
             profiler = None
 
     all_losses = []
@@ -303,11 +301,8 @@ def train(cfg: Config,
                 if not conditional:
                     batch = {"image": batch["image"]}
                 if epoch == start_epoch and i == profile_after and main:
-                    from torch.profiler import ProfilerActivity, profile
-                    acts = [ProfilerActivity.CPU]
-                    if device.type == "cuda":
-                        acts.append(ProfilerActivity.CUDA)
-                    profiler = profile(activities=acts)
+                    profiler = profiling.trace(
+                        os.path.join(paths.output_dir, "profile"))
                     profiler.__enter__()
                 state, m = step_fn(state, batch)
                 # the loss stays a device scalar: reading it here would wait
@@ -416,9 +411,11 @@ def train(cfg: Config,
         # restore process-wide handlers and close an open trace and the
         # writers even when a step raises
         exc_in_flight = sys.exc_info()[0] is not None
-        if profiler is not None:
-            profiler.__exit__(None, None, None)
-            profiler = None
+        if profiler is not None:        # the trace keeps what it holds
+            try:
+                profiler.__exit__(*sys.exc_info())
+            except Exception:         # a faulted card: the sync raises
+                logger.exception("closing the profile trace failed")
         for sig, h in prev_handlers.items():
             signal.signal(sig, h)
         close_err: Optional[BaseException] = None

@@ -30,6 +30,12 @@ draws from ``state.generator`` in this fixed order, per microbatch:
 ``draws`` is a dict with any of ``aug`` (a dict for ``augment``), ``drop``,
 ``t`` and ``noise``; with ``grad_accum > 1`` it is a list of such dicts, one
 per microbatch.
+
+Spans (``utils/profiling.py``, on while a ``profiling.trace`` is open, as
+``logging.profile_steps`` opens one): ``train.step`` around the call, with
+``train.forward`` and ``train.backward`` per microbatch, ``train.optimizer``
+(the clip and the Adam update) and ``train.ema`` inside it; host ranges,
+as the step never waits for the device.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from superdiff_torch.diffusion.schedules import DiffusionSchedule
 from superdiff_torch.parallel.mesh import (
     all_reduce_mean, gather_rows, local_rows)
 from superdiff_torch.training.state import TrainState, ema_update
+from superdiff_torch.utils import profiling
 
 
 def make_train_step(schedule: DiffusionSchedule,
@@ -106,6 +113,10 @@ def make_train_step(schedule: DiffusionSchedule,
                             t=t, noise=noise)
 
     def step_fn(state: TrainState, batch, draws=None) -> tuple:
+        with profiling.span("train.step"):
+            return _step(state, batch, draws)
+
+    def _step(state: TrainState, batch, draws) -> tuple:
         B = batch["image"].shape[0]
         if B % grad_accum:
             raise ValueError(f"batch size {B} not divisible by "
@@ -126,9 +137,11 @@ def make_train_step(schedule: DiffusionSchedule,
             if fsdp:                  # reduce-scatter after the last only
                 state.model.set_requires_gradient_sync(i == grad_accum - 1)
             micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-            loss = loss_of(state, micro, draws[i])
+            with profiling.span("train.forward"):
+                loss = loss_of(state, micro, draws[i])
             # p.grad accumulates the sum of the microbatch gradients
-            (loss / grad_accum).backward()
+            with profiling.span("train.backward"):
+                (loss / grad_accum).backward()
             loss_sum = loss.detach() if loss_sum is None else (
                 loss_sum + loss.detach())
         grads = _local([p.grad if p.grad is not None else torch.zeros_like(p)
@@ -145,10 +158,12 @@ def make_train_step(schedule: DiffusionSchedule,
         if fsdp:                      # the moments' local shards
             opt = dict(opt, mu=_local(opt["mu"]), nu=_local(opt["nu"]))
         kw = {} if grad_norm is None else {"grad_norm": grad_norm}
-        grad_norm = state.tx.update(_local(params), grads, opt, **kw)
+        with profiling.span("train.optimizer"):
+            grad_norm = state.tx.update(_local(params), grads, opt, **kw)
         state.opt_state["count"] = opt["count"]
-        ema_update(_local(state.ema_params), _local(params), state.ema_decay,
-                   state.step)
+        with profiling.span("train.ema"):
+            ema_update(_local(state.ema_params), _local(params),
+                       state.ema_decay, state.step)
         state.step += 1
         for p in params:
             p.grad = None

@@ -11,7 +11,14 @@ Port of ``superdiff_tpu/utils/profiling.py``:
   ``jax_debug_infs``: a global module forward hook that raises on a
   non-finite output, and autograd's anomaly mode for the backward;
 - :func:`set_deterministic`: deterministic kernels (cuBLAS workspace,
-  cuDNN, ``torch.use_deterministic_algorithms``).
+  cuDNN, ``torch.use_deterministic_algorithms``);
+- :func:`span`: a named range at a layer boundary of the program (a train
+  step and its phases), which stands in :func:`trace`'s Chrome trace as a
+  ``record_function`` range beside the ops and kernels it encloses. Spans
+  are on only while a :func:`trace` is open; otherwise :func:`span`
+  returns one shared no-op and costs a read of a module counter, and a
+  ``torch.profiler`` window that is not :func:`trace`'s sees none of
+  them.
 """
 
 from __future__ import annotations
@@ -23,11 +30,16 @@ from typing import Iterator, Tuple
 
 import torch
 
+_traces_open = 0                  # :func:`trace` windows open: spans are on
+_NO_SPAN = contextlib.nullcontext()
+
 
 @contextlib.contextmanager
 def trace(log_dir: str) -> Iterator[None]:
     """Profile everything inside the context (host ops, and the card's
-    kernels when CUDA is available) into ``log_dir/trace.json``."""
+    kernels when CUDA is available) into ``log_dir/trace.json``, with the
+    program's :func:`span` ranges on while it is open."""
+    global _traces_open
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]
@@ -36,12 +48,25 @@ def trace(log_dir: str) -> Iterator[None]:
     os.makedirs(log_dir, exist_ok=True)
     prof = profile(activities=acts)
     prof.__enter__()
+    _traces_open += 1
     try:
         yield
     finally:
-        _sync()
-        prof.__exit__(None, None, None)
+        _traces_open -= 1
+        try:
+            _sync()
+        finally:                  # the profiler stops even if the card faulted
+            prof.__exit__(None, None, None)
         prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def span(name: str):
+    """A range named ``name`` around a ``with`` block: a
+    ``torch.profiler.record_function`` range while a :func:`trace` is
+    open, else one shared no-op."""
+    if _traces_open:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def _sync() -> None:

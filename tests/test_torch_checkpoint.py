@@ -196,6 +196,10 @@ def test_loop_outputs_metrics_best_val_and_plots(tmp_path):
     trace = os.path.join(_run_dir(tmp_path, "noplots"), "profile",
                          "trace.json")
     assert os.path.getsize(trace) > 0
+    with open(trace) as f:                 # the traced step's spans
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"train.step", "train.forward", "train.backward",
+            "train.optimizer", "train.ema"} <= names
 
 
 def test_run_paths_do_not_depend_on_the_host_name(tmp_path, monkeypatch):

@@ -622,6 +622,42 @@ def test_service_captures_once_per_spec_on_card(cuda):
         svc.close()
 
 
+@pytest.mark.cuda
+def test_service_device_timer_on_card(cuda):
+    """``stats["device_ms_total"]`` grows by each batch's device time (CUDA
+    events around its draws and replays): more than nothing, less than the
+    host's time around the batch, and the same for every batch of one
+    spec once its graph is captured."""
+    import time
+
+    from superdiff_torch.diffusion.schedules import make_schedule
+    from superdiff_torch.models.unet import CondUNet
+    from superdiff_torch.serve import SampleSpec, SamplerService
+
+    model = CondUNet(resolution=16, base_channels=32, channel_mults=(1, 2),
+                     num_res_blocks=1, attn_resolutions=(8,), num_heads=2,
+                     num_classes=2, time_emb_dim=32, groups=8,
+                     device=cuda).init_parameters(4).eval()
+    svc = SamplerService(model, make_schedule(20, device=cuda),
+                         resolution=16, conditional=True, batch_size=4,
+                         autostart=False)
+    spec = SampleSpec("ddim", 5)
+    grown = []
+    try:
+        for n in (1, 2, 4, 3):
+            before = svc.stats["device_ms_total"]
+            svc.submit(n, label=1, spec=spec)
+            tic = time.perf_counter()
+            assert svc.step_once() == 1
+            wall_ms = (time.perf_counter() - tic) * 1e3
+            grown.append(svc.stats["device_ms_total"] - before)
+            assert 0 < grown[-1] < wall_ms
+    finally:
+        svc.close()
+    # after the first batch (the capture) every batch replays one graph
+    assert max(grown[1:]) < 2 * min(grown[1:])
+
+
 # ---- the data layer and the SmallCNN extractor (kernel B4 in float32) ----
 
 SMALLCNN_SHAPES = [(16, 128, 128, 32), (16, 64, 64, 64), (16, 32, 32, 128),
