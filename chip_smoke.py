@@ -85,16 +85,19 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    (b) superdiff_torch.cli.train --synthetic --device cuda at batch 16, 3
        epochs of 10 optimizer steps (the first is warm-up): images per
        second and ms per step of the last two, peak memory, validation loss
-       finite and falling on the fixed stream, exactly 8/8/8 launches of
-       B1/B2/B3 per train step and 8 of B1 per validation batch; no B4 in
-       a train step (the chains run under autograd) and 51 per validation
-       batch;
+       finite and falling on the fixed stream; the train step one CUDA
+       graph (one eager warm-up step, one capture holding exactly 8/8/8
+       launches of B1/B2/B3, replays for the other steps, the replayed
+       share of each epoch's steps) and 8 of B1 per validation batch; no B4
+       in a train step (the chains run under autograd) and 51 per
+       validation batch;
    (c) a short leg with model.remat=true and training.grad_accum=2 (16 B1
        launches per microbatch), and one in which this script swaps the
        backward kernels for autograd of the plain softmax attention, for its
        time only (the package has no such switch);
-   (d) a train step alone on a fixed batch: CUDA-event time and a
-       torch.profiler breakdown (device busy, idle share, B1+B2+B3 share);
+   (d) a train step alone on a fixed batch, replayed from its graph:
+       CUDA-event time and a torch.profiler breakdown (device busy, idle
+       share, B1+B2+B3 share);
    (e) resume at batch 4: 2 steps + checkpoint + 2 steps against 4 straight
        steps, every saved tensor bit for bit
        (torch.backends.cudnn.deterministic=True);
@@ -118,8 +121,9 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    (d) one wide256 call without gradients: 51 B4 launches (the
        CondUNet's chains) and 8 B1;
    (e) cli.train --synthetic on model.preset=ref, batch 4: loss finite and
-       falling, 10 B4 launches per step and per validation batch; gradients
-       of one loss at batch 2 with B4 against the plain version;
+       falling, 10 B4 launches in the captured train step (one capture,
+       replays for the rest) and per validation batch; gradients of one
+       loss at batch 2 with B4 against the plain version;
    these legs run under PyTorch's default (cuDNN TF32 on), as a user's
    CLI run does; the RefUNet's convolutions ignore it;
 7. serving: superdiff_torch.cli.serve's loading (load_service) of the two
@@ -150,8 +154,8 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
        epochs of the train split's steps each, validation after the second
        (the tree's val split, wrap-padded): images/s and ms per step of the
        second epoch, the profiled device idle share, the val loss, 8/8/8
-       B1/B2/B3 per train step, 0 B4 per train step and 51 per validation
-       batch;
+       B1/B2/B3 in the captured train step (one capture, replays for the
+       rest), 0 B4 per train step and 51 per validation batch;
    (c) superdiff_torch.cli.evaluate on the tree run: DDIM-100 graphed, 64
        samples at batch 16, FID against the test split under the
        classifier (artifacts/extractors/smallcnn_trained_256.npz),
@@ -848,13 +852,17 @@ def train_step_alone(fa, tcfg, model_from_config, make_schedule, training,
     imgs, labels = synthetic_xray_batch(batch, 256, seed=0)
     data = {"image": torch.from_numpy(imgs).cuda(),
             "label": torch.from_numpy(labels).long().cuda()}
-    for _ in range(3):
+    for _ in range(3):            # warm-up step, capture, replay
         step_fn(state, data)
     fa.reset_launches()
+    replays = training.steps.replays
     step_ms = cuda_time_ms(lambda: step_fn(state, data), timed, warmup=0)
-    if flash_counts(fa) != (8 * timed,) * 3:
+    if (flash_counts(fa) != (0, 0, 0)
+            or training.steps.replays != replays + timed):
         raise AssertionError(f"{timed} train steps launched "
-                             f"{flash_counts(fa)}, expected 8 each per step")
+                             f"{flash_counts(fa)} from Python and replayed "
+                             f"{training.steps.replays - replays} times, "
+                             f"expected none and {timed}")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -917,6 +925,7 @@ def phase_training(fa, fn, work, run1, tcfg, model_from_config, load_run,
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launches()
     fn.reset_launches()
+    training.steps.reset_counts()
     tic = time.time()
     main_dir, metrics = run_train_cli(
         train_cli, work, "main", B, EPOCHS, STEPS,
@@ -928,10 +937,12 @@ def phase_training(fa, fn, work, run1, tcfg, model_from_config, load_run,
                           dkv=dict(fa.bwd_dkv_launches_by_shape))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_steps = EPOCHS * STEPS
-    expect = (8 * (n_steps + EPOCHS * VAL), 8 * n_steps, 8 * n_steps)
+    # B1-B3 launch from Python in the warm-up step and the capture only
+    expect = (8 * (2 + EPOCHS * VAL), 16, 16)
     if counts != expect:
         raise AssertionError(f"training launched (B1, B2, B3) = {counts}, "
                              f"expected {expect}")
+    check_train_graph(fa, training.steps, n_steps, (8, 8, 8), "training")
     # B4 in the validation batches (no gradients), not in the train steps
     check_b4(fn.launches, EPOCHS * VAL, "training (validation batches)")
     tr, va = epoch_rows(metrics, "avg_loss"), epoch_rows(metrics, "val_loss")
@@ -950,6 +961,7 @@ def phase_training(fa, fn, work, run1, tcfg, model_from_config, load_run,
         ms_per_step=float(np.mean([B / v * 1e3 for v in ips])),
         train_loss_by_epoch=[m["avg_loss"] for m in tr],
         val_loss_by_epoch=[m["val_loss"] for m in va],
+        graph_replay_share_by_epoch=[m["graph_replay_share"] for m in tr],
         grad_norm_last=tr[-1]["grad_norm"], peak_mem_gb=peak_gb,
         launches=dict(B1=counts[0], B2=counts[1], B3=counts[2],
                       B4=fn.launches),
@@ -963,14 +975,18 @@ def phase_training(fa, fn, work, run1, tcfg, model_from_config, load_run,
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launches()
+    training.steps.reset_counts()
     _, m_remat = run_train_cli(
         train_cli, work, "remat", B, 2, 4,
         ["--set", "model.remat=true", "--set", "training.grad_accum=2",
          "--set", "training.eval_every=0"])
     counts = flash_counts(fa)
-    if counts != (32 * 8, 16 * 8, 16 * 8):
-        raise AssertionError(f"remat + grad_accum=2 launched {counts} in 8 "
-                             "steps, expected (256, 128, 128)")
+    if counts != (2 * 32, 2 * 16, 2 * 16):
+        raise AssertionError(f"remat + grad_accum=2 launched {counts} in its "
+                             "warm-up step and capture, expected (64, 32, "
+                             "32)")
+    check_train_graph(fa, training.steps, 8, (32, 16, 16),
+                      "remat + grad_accum=2")
     tr = epoch_rows(m_remat, "avg_loss")
     out["remat_accum2"] = dict(
         batch=B, ms_per_step=B / tr[-1]["images_per_sec"] * 1e3,
@@ -980,12 +996,14 @@ def phase_training(fa, fn, work, run1, tcfg, model_from_config, load_run,
         train_loss_by_epoch=[m["avg_loss"] for m in tr])
     log("phase 5c remat + grad_accum=2: " + json.dumps(out["remat_accum2"]))
     fa.reset_launches()
+    training.steps.reset_counts()
     with swapped(fa, _flash_backward_cuda=math_backward):
         _, m_math = run_train_cli(train_cli, work, "mathbwd", B, 2, 10,
                                   ["--set", "training.eval_every=0"])
-    if flash_counts(fa) != (160, 0, 0):
+    if flash_counts(fa) != (16, 0, 0):
         raise AssertionError(f"math-backward leg launched "
-                             f"{flash_counts(fa)}, expected (160, 0, 0)")
+                             f"{flash_counts(fa)}, expected (16, 0, 0)")
+    check_train_graph(fa, training.steps, 20, (8, 0, 0), "math backward")
     tr = epoch_rows(m_math, "avg_loss")
     out["math_backward"] = dict(
         batch=B, ms_per_step=B / tr[-1]["images_per_sec"] * 1e3,
@@ -1576,6 +1594,7 @@ def phase_ref(fa, fn, work, sample, load_run, wide_model):
     from superdiff_torch.diffusion.process import p_losses
     from superdiff_torch.inference import apply_sampling_policy
     from superdiff_torch.models.layers import GroupNormSiLU
+    from superdiff_torch.training import steps as train_steps
 
     out, runs = {}, {}
     tic = time.time()
@@ -1725,15 +1744,22 @@ def phase_ref(fa, fn, work, sample, load_run, wide_model):
     # (e) cli.train on the ref preset, then gradients kernel vs plain
     STEPS, EPOCHS, VAL = 8, 3, 2
     fn.reset_launches()
+    train_steps.reset_counts()
     _, metrics = run_train_cli(
         train_cli, work, "ref", 4, EPOCHS, STEPS,
         ["--set", f"training.eval_batches={VAL}"], model_args=REF)
-    expect_n = REF_CALLS_B4 * EPOCHS * (STEPS + VAL)
+    # from Python: the train step's warm-up and capture, and validation
+    expect_n = REF_CALLS_B4 * (2 + EPOCHS * VAL)
+    graph = (train_steps.captures, train_steps.replays,
+             sum(fn.captured_by_shape.values()))
     tr, va = epoch_rows(metrics, "avg_loss"), epoch_rows(metrics, "val_loss")
     losses = [m["avg_loss"] for m in tr] + [m["val_loss"] for m in va]
-    if fn.launches != expect_n or not np.isfinite(losses).all():
+    if (fn.launches != expect_n
+            or graph != (1, EPOCHS * STEPS - 1, REF_CALLS_B4)
+            or not np.isfinite(losses).all()):
         raise AssertionError(f"ref training: {fn.launches} B4 launches "
-                             f"(expected {expect_n}), losses {losses}")
+                             f"(expected {expect_n}), (captures, replays, "
+                             f"captured B4) = {graph}, losses {losses}")
     if not (va[-1]["val_loss"] < va[0]["val_loss"]
             and tr[-1]["avg_loss"] < tr[0]["avg_loss"]):
         raise AssertionError(f"ref loss did not fall: train {tr}, val {va}")
@@ -1904,6 +1930,7 @@ def phase_data_eval(fa, fn, work, card_line):
     from superdiff_torch.diffusion import graphed
     from superdiff_torch.inference import load_run
     from superdiff_torch.tools.tune_group_norm import chain_inputs, gn_library
+    from superdiff_torch.training import steps as train_steps
     from superdiff_torch.utils.visualization import png_bytes
 
     out = {"card": card_line}
@@ -2000,6 +2027,7 @@ def phase_data_eval(fa, fn, work, card_line):
     for leg in ("tree", "synthetic"):
         fa.reset_launches()
         fn.reset_launches()
+        train_steps.reset_counts()
         src = (["--dataset", "TB", "--dataset-root", root] if leg == "tree"
                else ["--synthetic", "--set",
                      f"training.steps_per_epoch={steps}", "--set",
@@ -2030,10 +2058,12 @@ def phase_data_eval(fa, fn, work, card_line):
                                                    "trace.json"))
         vb = n_val
         counts = flash_counts(fa)
-        expect = (8 * (2 * steps + vb), 16 * steps, 16 * steps)
+        expect = (8 * (2 + vb), 16, 16)
         if counts != expect:
             raise AssertionError(f"{leg} training launched (B1, B2, B3) = "
                                  f"{counts}, expected {expect}")
+        check_train_graph(fa, train_steps, 2 * steps, (8, 8, 8),
+                          f"{leg} training")
         check_b4(fn.launches, vb, f"{leg} training (validation batches)")
         if len(tr) != 2 or len(va) != 1 or not np.isfinite(
                 [m["avg_loss"] for m in tr] + [va[0]["val_loss"]]).all():
@@ -3478,6 +3508,22 @@ def check_launches(launches, calls, what):
     if launches != expect:
         raise AssertionError(f"{what}: {launches} flash launches for "
                              f"{calls} denoiser calls, expected {expect}")
+
+
+def check_train_graph(fa, train_steps, n_steps, per_step, what):
+    """A run of ``n_steps`` train steps on one card: one eager warm-up
+    step, one capture and a replay for every other step, the captured step
+    holding ``per_step`` launches of B1/B2/B3."""
+    got = (train_steps.captures, train_steps.replays, train_steps.eager_steps)
+    if got != (1, n_steps - 1, 1):
+        raise AssertionError(f"{what}: (captures, replays, eager steps) = "
+                             f"{got}, expected (1, {n_steps - 1}, 1)")
+    captured = tuple(sum(d.values()) for d in (
+        fa.captured_by_shape, fa.bwd_dq_captured_by_shape,
+        fa.bwd_dkv_captured_by_shape))
+    if captured != tuple(per_step):
+        raise AssertionError(f"{what}: the captured step holds (B1, B2, B3) "
+                             f"= {captured}, expected {tuple(per_step)}")
 
 
 def check_b4(launches, calls, what):

@@ -196,6 +196,51 @@ def _rotate_shear3(batch: torch.Tensor, angles: torch.Tensor,
     return _shift1d(out, offx, axis=2, max_shift=Dx)
 
 
+def augment_draws(shape, generator: Optional[torch.Generator] = None,
+                  risk: str = "low", device=None,
+                  draws: Optional[Dict[str, torch.Tensor]] = None
+                  ) -> Dict[str, torch.Tensor]:
+    """Every random draw of :func:`augment` on a batch of ``shape`` (``B,
+    H, W, C``): those in ``draws`` as given, the rest from ``generator``
+    in the module docstring's order, as :func:`augment` takes them (the
+    uniform ones already scaled to their ranges). They depend on nothing
+    but the shape, so a caller may draw them ahead of the batch."""
+    if risk == "high":
+        raise ValueError("Avoid high-risk medical augmentations")
+    if risk not in RISK_TIERS:
+        raise ValueError(f"unknown augmentation risk {risk!r} "
+                         f"(have {RISK_TIERS + ('high',)})")
+    out = dict(draws or {})
+    if risk == "none":
+        return out
+    B = shape[0]
+
+    def uniform(name, lo, hi):
+        if name not in out:
+            u = torch.rand((B,), generator=generator, device=device)
+            out[name] = lo + (hi - lo) * u
+
+    def bernoulli(name, p):
+        if name not in out:
+            out[name] = torch.rand((B,), generator=generator,
+                                   device=device) < p
+
+    maxr = (5.0 if risk == "low" else 15.0) * (math.pi / 180.0)
+    bernoulli("flip", 0.5)
+    uniform("angles", -maxr, maxr)
+    bernoulli("rot", 0.5 if risk == "low" else 1.0)
+    bernoulli("bc", 0.3 if risk == "low" else 0.4)
+    uniform("bright", -0.2, 0.2)
+    uniform("contrast", -0.2, 0.2)
+    if risk == "low":
+        bernoulli("noise_mask", 0.2)
+        uniform("sigma", 0.01, 0.05)
+        if "noise" not in out:
+            out["noise"] = torch.randn(tuple(shape), generator=generator,
+                                       device=device)
+    return out
+
+
 def augment(batch: torch.Tensor, generator: Optional[torch.Generator] = None,
             risk: str = "low",
             draws: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
@@ -206,62 +251,35 @@ def augment(batch: torch.Tensor, generator: Optional[torch.Generator] = None,
     ``[-max, max]``, ``rot`` (B,) bool, ``bc`` (B,) bool, ``bright`` and
     ``contrast`` (B,) in ``[-0.2, 0.2]``, ``noise_mask`` (B,) bool, ``sigma``
     (B,) in ``[0.01, 0.05]`` and ``noise`` (B, H, W, C) standard normal; what
-    is absent is drawn from ``generator``."""
-    if risk == "high":
-        raise ValueError("Avoid high-risk medical augmentations")
-    if risk not in RISK_TIERS:
-        raise ValueError(f"unknown augmentation risk {risk!r} "
-                         f"(have {RISK_TIERS + ('high',)})")
+    is absent is drawn from ``generator`` (:func:`augment_draws`)."""
+    d = augment_draws(batch.shape, generator, risk, batch.device, draws)
     if risk == "none":
         return batch
-    draws = draws or {}
     B, dev = batch.shape[0], batch.device
 
-    def uniform(name, lo, hi):
-        if name in draws:
-            return draws[name].to(dev)
-        u = torch.rand((B,), generator=generator, device=dev)
-        return lo + (hi - lo) * u
-
-    def bernoulli(name, p):
-        if name in draws:
-            return draws[name].to(dev)
-        return torch.rand((B,), generator=generator, device=dev) < p
-
-    def per_image(a):
-        return a.reshape(B, 1, 1, 1)
+    def per_image(name):
+        return d[name].to(dev).reshape(B, 1, 1, 1)
 
     # horizontal flip, p=0.5 (both tiers)
-    batch = torch.where(per_image(bernoulli("flip", 0.5)),
-                        batch.flip(dims=(2,)), batch)
+    batch = torch.where(per_image("flip"), batch.flip(dims=(2,)), batch)
 
     # rotation: low = +-5 deg p=0.5 ; medium = +-15 deg p=1.0
-    max_deg = 5.0 if risk == "low" else 15.0
-    rot_p = 0.5 if risk == "low" else 1.0
-    maxr = max_deg * (math.pi / 180.0)
-    angles = uniform("angles", -maxr, maxr)
-    angles = torch.where(bernoulli("rot", rot_p), angles,
-                         torch.zeros_like(angles))
-    batch = _rotate_shear3(batch, angles, max_deg)
+    angles = d["angles"].to(dev)
+    angles = torch.where(d["rot"].to(dev), angles, torch.zeros_like(angles))
+    batch = _rotate_shear3(batch, angles, 5.0 if risk == "low" else 15.0)
 
     # brightness/contrast: low p=0.3, medium p=0.4; +-0.2 each
-    do_bc = bernoulli("bc", 0.3 if risk == "low" else 0.4)
-    bright = uniform("bright", -0.2, 0.2)
-    contrast = uniform("contrast", -0.2, 0.2)
     adjusted = torch.clamp(
-        (batch - 0.5) * (1.0 + per_image(contrast)) + 0.5 + per_image(bright),
-        0.0, 1.0)
-    batch = torch.where(per_image(do_bc), adjusted, batch)
+        (batch - 0.5) * (1.0 + per_image("contrast")) + 0.5
+        + per_image("bright"), 0.0, 1.0)
+    batch = torch.where(per_image("bc"), adjusted, batch)
 
     if risk == "low":
         # gaussian noise p=0.2, sigma ~ U[0.01, 0.05]
-        do_noise = bernoulli("noise_mask", 0.2)
-        sigma = uniform("sigma", 0.01, 0.05)
-        noise = (draws["noise"].to(dev) if "noise" in draws else
-                 torch.randn(batch.shape, generator=generator, device=dev))
-        batch = torch.where(per_image(do_noise),
-                            torch.clamp(batch + noise * per_image(sigma),
-                                        0.0, 1.0), batch)
+        batch = torch.where(per_image("noise_mask"),
+                            torch.clamp(batch + d["noise"].to(dev)
+                                        * per_image("sigma"), 0.0, 1.0),
+                            batch)
     return batch
 
 

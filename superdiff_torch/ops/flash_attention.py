@@ -32,9 +32,11 @@ same functions in plain PyTorch with the kernels' roundings. Under
 registered op ``superdiff::flash_attn_fwd``, whose vmap rule folds the
 mapped axis into the batch: one launch for all mapped calls. ``launches``,
 ``bwd_dq_launches`` and ``bwd_dkv_launches`` count kernel launches;
-``captured_by_shape`` counts the forward launches among them that were
-recorded into a CUDA graph (made under stream capture), which the graph's
-replays launch again without this module seeing them. There is
+``captured_by_shape`` (``bwd_dq_captured_by_shape``,
+``bwd_dkv_captured_by_shape``) counts the forward (backward) launches
+among them that were recorded into a CUDA graph (made under stream
+capture), which the graph's replays launch again without this module
+seeing them. There is
 no other backward: the reference's ``SUPERDIFF_TPU_FLASH_BWD=xla`` opt-out has
 no counterpart here.
 """
@@ -56,8 +58,10 @@ launches_by_shape = {}       # (S, D, dtype name) -> launches, same events
 captured_by_shape = {}       # the same, of launches made under capture
 bwd_dq_launches = 0          # dQ kernel launches since the last reset
 bwd_dq_launches_by_shape = {}
+bwd_dq_captured_by_shape = {}    # the same, of launches made under capture
 bwd_dkv_launches = 0         # dK/dV kernel launches since the last reset
 bwd_dkv_launches_by_shape = {}
+bwd_dkv_captured_by_shape = {}
 
 
 def reset_launches() -> None:
@@ -66,7 +70,9 @@ def reset_launches() -> None:
     launches_by_shape.clear()
     captured_by_shape.clear()
     bwd_dq_launches_by_shape.clear()
+    bwd_dq_captured_by_shape.clear()
     bwd_dkv_launches_by_shape.clear()
+    bwd_dkv_captured_by_shape.clear()
 
 
 def _shape_key(q) -> tuple:
@@ -401,10 +407,14 @@ def _launch_bwd(kernel: str, q, k, v, g, lse, delta, warps: int, bt: int,
     if kernel == "dq":
         bwd_dq_launches += 1
         counts = bwd_dq_launches_by_shape
+        captured = bwd_dq_captured_by_shape
     else:
         bwd_dkv_launches += 1
         counts = bwd_dkv_launches_by_shape
+        captured = bwd_dkv_captured_by_shape
     counts[key] = counts.get(key, 0) + 1
+    if torch.cuda.is_current_stream_capturing():
+        captured[key] = captured.get(key, 0) + 1
     return outs[0] if kernel == "dq" else tuple(outs)
 
 

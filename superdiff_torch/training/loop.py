@@ -2,10 +2,12 @@
 
 Port of ``superdiff_tpu/training/loop.py``:
 
-- one eager train step per batch, EMA maintained inside the step; in a
-  process group (``parallel/mesh.py``), a data-parallel step over a mesh
-  of every rank, each rank on its rows of the global batch, and only rank
-  0 writing files (config, metrics, checkpoints, figures);
+- one train step per batch, EMA maintained inside the step, replayed as
+  one CUDA graph on a card (``training/steps.py``; the share of an
+  epoch's steps replayed is logged with it as ``graph_replay_share``); in
+  a process group (``parallel/mesh.py``), an eager data-parallel step over
+  a mesh of every rank, each rank on its rows of the global batch, and
+  only rank 0 writing files (config, metrics, checkpoints, figures);
 - checkpoints of the full state with resume (``checkpoint.py``);
 - metrics reach jsonl / TensorBoard / wandb;
 - validation on the EMA parameters over a fixed stream, with the best-val
@@ -46,6 +48,7 @@ from superdiff_torch.models.presets import (
     model_from_config, preset_for_resolution)
 from superdiff_torch.parallel.mesh import (
     is_main_process, make_mesh, shard_batch)
+from superdiff_torch.training import steps as train_steps
 from superdiff_torch.training.state import create_train_state, make_optimizer
 from superdiff_torch.training.steps import make_eval_step, make_train_step
 from superdiff_torch.utils import profiling
@@ -289,6 +292,7 @@ def train(cfg: Config,
             epoch_losses = []
             _sync()
             tic = time.time()
+            counts0 = (train_steps.replays, train_steps.eager_steps)
             # tree batches ride as raw uint8: one small upload per batch
             batches = ((_uint8_batch(b, device) for b in dm.iterator("train"))
                        if dm else _synthetic_batches(cfg, epoch, device))
@@ -331,13 +335,18 @@ def train(cfg: Config,
             avg = float(np.mean(epoch_losses))
             all_losses.extend(epoch_losses)
             imgs_per_sec = len(epoch_losses) * B / max(dt, 1e-9)
+            replayed = train_steps.replays - counts0[0]
+            share = replayed / max(
+                replayed + train_steps.eager_steps - counts0[1], 1)
 
             if _every(t.log_every, epoch):
-                logger.info("epoch %d: avg_loss=%.4f (%.1f img/s)",
-                            epoch + 1, avg, imgs_per_sec)
+                logger.info("epoch %d: avg_loss=%.4f (%.1f img/s, %.0f%% "
+                            "of steps replayed)", epoch + 1, avg,
+                            imgs_per_sec, 100.0 * share)
             metrics_log.log(state.step,
                             {"epoch": epoch + 1, "avg_loss": avg,
                              "images_per_sec": imgs_per_sec,
+                             "graph_replay_share": share,
                              "grad_norm": float(m["grad_norm"])})
 
             if eval_fn is not None and _every(t.eval_every, epoch):

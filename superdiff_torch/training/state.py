@@ -80,15 +80,31 @@ class Optimizer:
                 "mu": [torch.zeros_like(p) for p in params],
                 "nu": [torch.zeros_like(p) for p in params]}
 
+    def step_scalars(self, count: int) -> List[float]:
+        """The numbers of the update at ``count`` that change from step to
+        step, in double: the bias corrections ``1 - b1^(c+1)`` and ``1 -
+        b2^(c+1)``, their reciprocals (what a CUDA kernel multiplies by
+        where it divides by a Python number) and ``-lr(c)``."""
+        bc1 = 1.0 - self.b1 ** (count + 1)
+        bc2 = 1.0 - self.b2 ** (count + 1)
+        return [bc1, bc2, 1.0 / bc1, 1.0 / bc2, -self.lr(count)]
+
     @torch.no_grad()
     def update(self, params: List[torch.Tensor], grads: List[torch.Tensor],
                opt_state: dict,
-               grad_norm: Optional[torch.Tensor] = None) -> torch.Tensor:
+               grad_norm: Optional[torch.Tensor] = None,
+               scalars: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Apply one update in place (``params``, ``opt_state``; ``grads``
         are scaled in place when clipped). Returns the global norm of the
         gradients as they came in (float32 scalar tensor): ``grad_norm``
         when given (the norm over every rank's shards, where the lists hold
-        one rank's shards), else the norm of ``grads``."""
+        one rank's shards), else the norm of ``grads``.
+
+        ``scalars``, a float32 device tensor holding
+        :meth:`step_scalars` of the count, stands in for those Python
+        numbers, so that a captured update reads them anew at each replay;
+        the count is then the caller's to advance. Both forms give the
+        same bits."""
         if grad_norm is None:
             grad_norm = torch.linalg.vector_norm(
                 torch.stack(torch._foreach_norm(grads)))
@@ -102,17 +118,19 @@ class Optimizer:
         torch._foreach_add_(mu, grads, alpha=1.0 - self.b1)
         torch._foreach_mul_(nu, self.b2)
         torch._foreach_addcmul_(nu, grads, grads, value=1.0 - self.b2)
-        bc1 = 1.0 - self.b1 ** (count + 1)
-        bc2 = 1.0 - self.b2 ** (count + 1)
-        denom = torch._foreach_div(nu, bc2)
+        bc1, bc2, inv1, inv2, neg_lr = (
+            self.step_scalars(count) if scalars is None
+            else scalars.unbind())
+        denom = _div_scalar(nu, bc2, inv2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
-        upd = torch._foreach_div(mu, bc1)
+        upd = _div_scalar(mu, bc1, inv1)
         torch._foreach_div_(upd, denom)
         if self.weight_decay > 0:
             torch._foreach_add_(upd, params, alpha=self.weight_decay)
-        torch._foreach_add_(params, upd, alpha=-self.lr(count))
-        opt_state["count"] = count + 1
+        _add_scaled(params, upd, neg_lr)
+        if scalars is None:
+            opt_state["count"] = count + 1
         return grad_norm
 
 
@@ -160,13 +178,45 @@ def create_train_state(model: nn.Module, generator: torch.Generator,
                       generator=generator, tx=tx, ema_decay=ema_decay)
 
 
+def ema_scalars(decay: float, step: int) -> List[float]:
+    """The EMA's numbers at ``step``, in double: the effective decay ``eff
+    = min(decay, (1 + step) / (10 + step))`` and ``1 - eff``."""
+    eff = min(decay, (1.0 + step) / (10.0 + step))
+    return [eff, 1.0 - eff]
+
+
 @torch.no_grad()
 def ema_update(ema_params: List[torch.Tensor],
                new_params: List[torch.Tensor], decay: float,
-               step: int) -> None:
+               step: int, scalars: Optional[torch.Tensor] = None) -> None:
     """In-place EMA with warmup: the effective decay ramps in as
     ``min(decay, (1 + step) / (10 + step))``, ``step`` being the count
-    *before* this update, so early steps track the raw parameters."""
-    eff = min(decay, (1.0 + step) / (10.0 + step))
+    *before* this update, so early steps track the raw parameters.
+    ``scalars``, a float32 device tensor holding :func:`ema_scalars`,
+    stands in for ``decay`` and ``step`` (the same bits)."""
+    eff, rest = (ema_scalars(decay, step) if scalars is None
+                 else scalars.unbind())
     torch._foreach_mul_(ema_params, eff)
-    torch._foreach_add_(ema_params, new_params, alpha=1.0 - eff)
+    _add_scaled(ema_params, new_params, rest)
+
+
+def _div_scalar(xs: List[torch.Tensor], s, inv) -> List[torch.Tensor]:
+    """``xs / s`` as new tensors. ``s`` and its reciprocal ``inv`` are
+    Python numbers or 0-d device tensors of them, and the tensor form
+    rounds as PyTorch divides by a Python number on the tensors' device:
+    a CUDA kernel multiplies by the reciprocal taken in double, the CPU
+    divides."""
+    if isinstance(s, torch.Tensor) and s.device.type == "cuda":
+        return torch._foreach_mul(xs, inv)
+    return torch._foreach_div(xs, s)
+
+
+def _add_scaled(acc: List[torch.Tensor], xs: List[torch.Tensor],
+                scale) -> None:
+    """``acc += scale * xs`` in place, as one multiply-add per element:
+    ``scale`` a Python number (``alpha``) or a 0-d device tensor (the same
+    rounding through ``addcmul``)."""
+    if isinstance(scale, torch.Tensor):
+        torch._foreach_addcmul_(acc, xs, [scale] * len(xs))
+    else:
+        torch._foreach_add_(acc, xs, alpha=scale)

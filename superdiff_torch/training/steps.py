@@ -31,11 +31,43 @@ draws from ``state.generator`` in this fixed order, per microbatch:
 ``t`` and ``noise``; with ``grad_accum > 1`` it is a list of such dicts, one
 per microbatch.
 
+Launching. Without a ``mesh`` and injected ``draws``, a step is split in
+two, the counterpart of the JAX package's one jitted step:
+
+1. on the host, eagerly: the batch is copied into static buffers, the
+   step's draws are drawn from ``state.generator`` in the order above, all
+   microbatches first, into static buffers (the same calls, so the same
+   bits), and the numbers that change from step to step
+   (``Optimizer.step_scalars`` of the count and ``ema_scalars`` of the
+   step, taken on the host in double) are written into a static float32
+   tensor by a fresh pinned copy;
+2. the body: the loss of every microbatch on those draws, the backward,
+   the clip, Adam and the EMA, reading the numbers from that tensor.
+
+On a CUDA device the body is captured as one CUDA graph and each step
+replays it: the first call with a new key runs the body eagerly on a side
+stream (a real step, which also builds the kernels and picks cuDNN's
+plans), the second captures it and replays it. The key is the device, the
+batch's shapes and dtypes and the addresses of the parameters, the
+moments and the EMA, so a checkpoint restore (which copies in place)
+keeps the graph; a new key takes a new warm-up step and capture. On the
+CPU the same split runs the body eagerly. A ``mesh`` (collectives) or
+injected ``draws`` take the eager step, which draws as it goes and passes
+the per-step numbers as Python floats; both forms give the same bits
+(``Optimizer.update``). ``state.step`` and the Adam count advance on the
+host. The metrics are copies of the graph's outputs, so they never alias
+the next step's.
+
+Counts: ``captures`` (graphs captured), ``replays`` and ``eager_steps``
+(steps run without a graph, the warm-up steps among them) since
+:func:`reset_counts`.
+
 Spans (``utils/profiling.py``, on while a ``profiling.trace`` is open, as
-``logging.profile_steps`` opens one): ``train.step`` around the call, with
+``logging.profile_steps`` opens one): ``train.step`` around the call;
+inside it a replay is one ``train.replay`` range, and an eager body shows
 ``train.forward`` and ``train.backward`` per microbatch, ``train.optimizer``
-(the clip and the Adam update) and ``train.ema`` inside it; host ranges,
-as the step never waits for the device.
+(the clip and the Adam update) and ``train.ema``; host ranges, as the step
+never waits for the device.
 """
 
 from __future__ import annotations
@@ -44,13 +76,23 @@ from typing import Callable, Optional
 
 import torch
 
-from superdiff_torch.data.transforms import prepare_batch
+from superdiff_torch.data.transforms import augment_draws, prepare_batch
 from superdiff_torch.diffusion.process import training_step as loss_fn_impl
 from superdiff_torch.diffusion.schedules import DiffusionSchedule
 from superdiff_torch.parallel.mesh import (
     all_reduce_mean, gather_rows, local_rows)
-from superdiff_torch.training.state import TrainState, ema_update
+from superdiff_torch.training.state import (
+    TrainState, ema_scalars, ema_update)
 from superdiff_torch.utils import profiling
+
+captures = 0                  # train-step graphs captured since the reset
+replays = 0                   # their replays
+eager_steps = 0               # steps run without a graph
+
+
+def reset_counts() -> None:
+    global captures, replays, eager_steps
+    captures = replays = eager_steps = 0
 
 
 def make_train_step(schedule: DiffusionSchedule,
@@ -82,11 +124,28 @@ def make_train_step(schedule: DiffusionSchedule,
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     fsdp = state_shardings is not None and state_shardings.fsdp
 
+    def fill_draws(x: torch.Tensor, g, given: dict) -> dict:
+        """Every draw of a loss on the microbatch ``x``: those in ``given``
+        as they are, the rest from ``g`` in the module docstring's
+        order."""
+        d = dict(given)
+        B, dev = x.shape[0], x.device
+        if x.dtype == torch.uint8 and augmentation != "none":
+            d["aug"] = augment_draws(x.shape, g, augmentation, dev,
+                                     given.get("aug"))
+        if conditional and cfg_drop_prob > 0.0 and "drop" not in d:
+            d["drop"] = torch.rand((B,), generator=g,
+                                   device=dev) < cfg_drop_prob
+        dtype = torch.float32 if x.dtype == torch.uint8 else x.dtype
+        d["t"], d["noise"] = _loss_draws(schedule, x.shape, dtype, dev, g, d)
+        return d
+
     def loss_of(state: TrainState, batch, draws) -> torch.Tensor:
         g = state.generator
         if mesh is not None:          # the global microbatch, every rank
             batch = {k: gather_rows(v, mesh) for k, v in batch.items()}
         x = batch["image"]
+        draws = fill_draws(x, g, draws)
         if x.dtype == torch.uint8:
             x = prepare_batch(x, g, augmentation=augmentation,
                               normalization=normalization,
@@ -95,13 +154,9 @@ def make_train_step(schedule: DiffusionSchedule,
         if conditional:
             y = batch["label"]
             if cfg_drop_prob > 0.0:
-                drop = draws.get("drop")
-                if drop is None:
-                    drop = torch.rand((x.shape[0],), generator=g,
-                                      device=x.device) < cfg_drop_prob
-                y = torch.where(drop.to(x.device),
+                y = torch.where(draws["drop"].to(x.device),
                                 torch.full_like(y, null_label), y)
-        t, noise = _loss_draws(schedule, x, g, draws)
+        t, noise = draws["t"], draws["noise"]
         if mesh is not None:          # this rank's rows
             rows = local_rows(x.shape[0], mesh)
             x, t, noise = x[rows], t[rows], noise[rows]
@@ -112,26 +167,16 @@ def make_train_step(schedule: DiffusionSchedule,
                             parameterization=parameterization,
                             t=t, noise=noise)
 
-    def step_fn(state: TrainState, batch, draws=None) -> tuple:
-        with profiling.span("train.step"):
-            return _step(state, batch, draws)
-
-    def _step(state: TrainState, batch, draws) -> tuple:
-        B = batch["image"].shape[0]
-        if B % grad_accum:
-            raise ValueError(f"batch size {B} not divisible by "
-                             f"grad_accum {grad_accum}")
-        if draws is None:
-            draws = [{}] * grad_accum
-        elif grad_accum == 1 and isinstance(draws, dict):
-            draws = [draws]
-        if len(draws) != grad_accum:
-            raise ValueError(f"draws must hold {grad_accum} entries")
+    def body(state: TrainState, batch, draws, scalars=None) -> tuple:
+        """Loss, backward, clip, Adam and EMA on ``draws`` (one dict per
+        microbatch): ``(loss, grad_norm)``. ``scalars``: the split step's
+        tensor of the per-step numbers; None takes them from the state as
+        Python floats and lets the optimizer advance the count."""
         params = state.params
         for p in params:
             p.grad = None
         state.model.train()
-        mb = B // grad_accum
+        mb = batch["image"].shape[0] // grad_accum
         loss_sum = None
         for i in range(grad_accum):
             if fsdp:                  # reduce-scatter after the last only
@@ -157,34 +202,154 @@ def make_train_step(schedule: DiffusionSchedule,
         opt = state.opt_state
         if fsdp:                      # the moments' local shards
             opt = dict(opt, mu=_local(opt["mu"]), nu=_local(opt["nu"]))
-        kw = {} if grad_norm is None else {"grad_norm": grad_norm}
+        kw, ema_kw = {}, {}
+        if grad_norm is not None:
+            kw["grad_norm"] = grad_norm
+        if scalars is not None:       # Adam's numbers, then the EMA's two
+            kw["scalars"], ema_kw["scalars"] = scalars[:-2], scalars[-2:]
         with profiling.span("train.optimizer"):
             grad_norm = state.tx.update(_local(params), grads, opt, **kw)
         state.opt_state["count"] = opt["count"]
         with profiling.span("train.ema"):
             ema_update(_local(state.ema_params), _local(params),
-                       state.ema_decay, state.step)
-        state.step += 1
+                       state.ema_decay, state.step, **ema_kw)
         for p in params:
             p.grad = None
-        return state, {"loss": loss, "grad_norm": grad_norm}
+        return loss, grad_norm
+
+    def step_fn(state: TrainState, batch, draws=None) -> tuple:
+        with profiling.span("train.step"):
+            return _step(state, batch, draws)
+
+    # the split step's static buffers and graph (``batch``, ``draws``,
+    # ``scalars``, ``graph``), for inspection
+    step_fn.split = split = _Split(body)
+
+    def _step(state: TrainState, batch, draws) -> tuple:
+        global eager_steps
+        B = batch["image"].shape[0]
+        if B % grad_accum:
+            raise ValueError(f"batch size {B} not divisible by "
+                             f"grad_accum {grad_accum}")
+        if mesh is None and draws is None:
+            g, mb = state.generator, B // grad_accum
+            draws = [fill_draws(batch["image"][i * mb:(i + 1) * mb], g, {})
+                     for i in range(grad_accum)]
+            numbers = (state.tx.step_scalars(state.opt_state["count"])
+                       + ema_scalars(state.ema_decay, state.step))
+            loss, grad_norm = split(state, batch, draws, numbers)
+            state.opt_state["count"] += 1
+            metrics = {"loss": loss.clone(), "grad_norm": grad_norm.clone()}
+        else:
+            if draws is None:
+                draws = [{}] * grad_accum
+            elif grad_accum == 1 and isinstance(draws, dict):
+                draws = [draws]
+            if len(draws) != grad_accum:
+                raise ValueError(f"draws must hold {grad_accum} entries")
+            loss, grad_norm = body(state, batch, draws)
+            eager_steps += 1
+            metrics = {"loss": loss, "grad_norm": grad_norm}
+        state.step += 1
+        return state, metrics
 
     return step_fn
 
 
-def _loss_draws(schedule, x, g, draws):
-    """The timesteps, then the noise, of a loss on ``x`` (the draws of
+class _Split:
+    """The body of the split step on static buffers: captured as one CUDA
+    graph on a CUDA device (after one eager warm-up step), run eagerly on
+    the CPU. One key at a time (module docstring)."""
+
+    def __init__(self, body: Callable):
+        self.body = body
+        self.key = None
+        self.warm = False             # the key's warm-up step is done
+        self.graph = self.out = None  # the graph and its outputs
+
+    @staticmethod
+    def _key(state: TrainState, batch) -> tuple:
+        dev = batch["image"].device
+        leaves = (state.params + state.opt_state["mu"]
+                  + state.opt_state["nu"] + state.ema_params)
+        return (dev, tuple((k, v.shape, v.dtype)
+                           for k, v in sorted(batch.items())),
+                tuple(map(torch.Tensor.data_ptr, leaves)))
+
+    def __call__(self, state: TrainState, batch, draws,
+                 numbers) -> tuple:
+        """One step's body on ``batch``, ``draws`` and the per-step
+        ``numbers`` (Python floats): ``(loss, grad_norm)``, the graph's own
+        outputs on the card."""
+        global captures, replays, eager_steps
+        key = self._key(state, batch)
+        dev = key[0]
+        vals = torch.tensor(numbers, dtype=torch.float32,
+                            pin_memory=dev.type == "cuda")
+        if key != self.key:           # new static buffers, no graph
+            self.key, self.warm, self.graph, self.out = key, False, None, None
+            self.batch = {k: v.clone() for k, v in batch.items()}
+            self.draws = draws        # fresh tensors, the step's own
+            self.scalars = vals.to(dev, non_blocking=True)
+        else:
+            for k, v in batch.items():
+                self.batch[k].copy_(v)
+            _copy(self.draws, draws)
+            self.scalars.copy_(vals, non_blocking=True)
+        if dev.type != "cuda":
+            eager_steps += 1
+            return self.body(state, self.batch, self.draws, self.scalars)
+        if not self.warm:             # a real step, eagerly on a side stream
+            cur = torch.cuda.current_stream(dev)
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                out = self.body(state, self.batch, self.draws, self.scalars)
+            cur.wait_stream(side)
+            for t in out:             # read on this stream, made on the side
+                t.record_stream(cur)
+            self.warm = True
+            eager_steps += 1
+            return out
+        if self.graph is None:
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                self.out = self.body(state, self.batch, self.draws,
+                                     self.scalars)
+            self.graph = graph
+            captures += 1
+        with profiling.span("train.replay"):
+            self.graph.replay()
+        replays += 1
+        return self.out
+
+
+def _copy(dst, src) -> None:
+    """Copy the tensors of ``src`` into those of ``dst``, a tree of the
+    same structure."""
+    if isinstance(dst, dict):
+        for k in dst:
+            _copy(dst[k], src[k])
+    elif isinstance(dst, list):
+        for a, b in zip(dst, src):
+            _copy(a, b)
+    else:
+        dst.copy_(src)
+
+
+def _loss_draws(schedule, shape, dtype, device, g, draws):
+    """The timesteps, then the noise, of a loss on a batch of ``shape`` and
+    ``dtype`` on ``device`` (the draws of
     ``diffusion/process.py::training_step``, in its order), unless
     injected."""
     t = draws.get("t")
     if t is None:
-        t = torch.randint(0, schedule.num_timesteps, (x.shape[0],),
-                          generator=g, device=x.device)
+        t = torch.randint(0, schedule.num_timesteps, (shape[0],),
+                          generator=g, device=device)
     noise = draws.get("noise")
     if noise is None:
-        noise = torch.randn(x.shape, generator=g, dtype=x.dtype,
-                            device=x.device)
-    return t.to(x.device), noise.to(x.device)
+        noise = torch.randn(shape, generator=g, dtype=dtype, device=device)
+    return t.to(device), noise.to(device)
 
 
 def _local(tensors):
@@ -247,7 +412,7 @@ def make_eval_step(schedule: DiffusionSchedule,
             n = mesh.shape["data"]
             shape = (x.shape[0] * n,) + tuple(x.shape[1:])
             rows = local_rows(shape[0], mesh)
-            t, noise = _loss_draws(schedule, x.new_empty(shape), g, {})
+            t, noise = _loss_draws(schedule, shape, x.dtype, x.device, g, {})
             t, noise = t[rows], noise[rows]
         loss = loss_fn_impl(schedule, state.ema_model, x, g, y=y,
                             loss_type=loss_type, weighting=weighting,

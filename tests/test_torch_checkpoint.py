@@ -180,6 +180,8 @@ def test_loop_outputs_metrics_best_val_and_plots(tmp_path):
     assert [r["step"] for r in train_rows] == [2, 4] and len(val_rows) == 2
     assert all(np.isfinite(r["grad_norm"]) and r["images_per_sec"] > 0
                for r in train_rows)
+    # no card, so no graph: every train step ran its body eagerly
+    assert [r["graph_replay_share"] for r in train_rows] == [0.0, 0.0]
     with open(os.path.join(run, "best_val.json")) as f:
         best = json.load(f)
     assert best["step"] == int(summary["best_val_step"])
