@@ -5,6 +5,14 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
+``python3 chip_smoke.py --kernels [--root DIR]`` runs phases 1-3a and
+3d-3e alone (about 70 s with the builds) and prints their kernels line:
+B1 at the path shapes and at the SD call's, and B4 at the SD call's
+chains, with their times and bounds. ``--root`` imports the package of
+another checkout (a parent unpacked beside this one) under this file's
+checks, for before / after times in one call; a package with no
+``sd21base`` preset gives no SD rows.
+
 Phases (any failure raises and exits non-zero; nothing is skipped):
 
 1. device: require CUDA; print the card's name and power limit;
@@ -31,6 +39,21 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
        RefUNet's) at the RefUNet's batch-16 shapes (C, G) = (1, 1),
        (64, 4), (128, 4), FiLM cases, group widths 3 and 12, a ragged 7x9
        image; a rerun must give the same bits;
+   (d) B1 at Stable Diffusion 2.1-base's launches of its 16-row call (8
+       images under guidance): self-attention at S 4096 / 1024 / 256 / 64
+       with 5 / 10 / 20 / 20 heads of 64, and cross-attention of the same
+       queries to 77 keys (the K/V loop's masked partial tile), q from its
+       own projection and k, v from theirs (the layout Attention hands
+       the kernel); bf16 and f32 against the plain version, a rerun the
+       same bits;
+   (e) one full-width sd21base call at 16 rows under the bf16 sampling
+       policy (default-initialised weights, seeded latents and contexts):
+       32 B1 launches (16 self, 16 cross, at 3d's shapes) and 45 B4
+       chains counted through the wrappers; then B4 at each of those chain
+       shapes (C 320-2560, 32 groups: 10-80 channels a group, no FiLM) in
+       the regime launch_geometry picks against the plain chain (bf16
+       ulps and the share of elements differing), with its device time
+       and bound; and the call's own time;
    CUDA-event times of each kernel, its plain version and the library
    yardstick (F.scaled_dot_product_attention forward / backward for B1-B3;
    F.group_norm + F.silu for B4; timed only as yardsticks, the port never
@@ -261,7 +284,9 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    B4 at the 18 chain shapes of wide256 (13 sizes, FiLM or not; the
    regime launch_geometry picks, timed in 4b) and folded-mode B4 at the
    RefUNet's three, and folded-mode B4 at the SmallCNN's five (launches
-   counted in 8c's cli.evaluate run). A B1/B4 row's
+   counted in 8c's cli.evaluate run), and the SD call's B1 at its eight
+   launch shapes and B4 at its chain shapes (3d, 3e; `sd_call_launches`
+   is their launches in one 16-row call). A B1/B4 row's
    `launches` is its main-path run's (4a, 6a) launches at that shape,
    run_launches of three counts taken in that run and printed beside it:
    `wrapper_launches`, `captured_per_replay` and `graph_replays`. B1-B3
@@ -286,9 +311,13 @@ import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-IN_CHECKOUT = os.path.isdir(os.path.join(HERE, "superdiff_torch"))
+# the package under test: this checkout's, or with ``--kernels --root DIR``
+# another checkout's
+PKG_ROOT = (os.path.abspath(sys.argv[sys.argv.index("--root") + 1])
+            if "--root" in sys.argv[1:-1] else HERE)
+IN_CHECKOUT = os.path.isdir(os.path.join(PKG_ROOT, "superdiff_torch"))
 if IN_CHECKOUT:
-    sys.path.insert(0, HERE)
+    sys.path.insert(0, PKG_ROOT)
     from superdiff_torch.tools.timing import (cuda_time_ms, graph_time_ms,
                                               kernel_device_ms)
 KERNEL_SRC = "superdiff_torch/csrc/flash_attn_fwd.cu"
@@ -308,6 +337,14 @@ TOL = {"bfloat16": dict(out=2e-2, lse=2e-3), "float32": dict(out=1e-4,
                                                               lse=1e-4)}
 SLICE_REL_TOL = 5e-2     # bf16 path vs float32 plain path, relative L2
 BWD_SHAPES = PATH_SHAPES + [(2, 1000, 2, 128)]
+# B1 in Stable Diffusion 2.1-base's 16-row call, (B, Sq, Skv, H, D): at each
+# transformer level a self-attention and a cross-attention to the 77-token
+# text context
+SD_ATTN_SHAPES = [(16, S, kv, H, 64)
+                  for S, H in ((4096, 5), (1024, 10), (256, 20), (64, 20))
+                  for kv in (S, 77)]
+SD_CALL_B1 = 32          # 16 transformer blocks, a self- and a cross-attention
+SD_CALL_B4 = 45          # 22 ResBlocks' two GroupNorm->SiLU chains, the head's
 # dQ/dK/dV against the plain version, relative to the gradient's largest
 # entry: bf16 rounds P, dS and the result (2^-8 each); f32 differs only in
 # summation order and exp2 vs exp.
@@ -380,17 +417,22 @@ def nvidia_smi(query):
     return res.stdout.strip().splitlines()[0]
 
 
-def bound(B, S, H, D, dtype, sm_clock_hz, tensors=4, stats=1, products=2):
+def bound(B, S, H, D, dtype, sm_clock_hz, tensors=4, stats=1, products=2,
+          Skv=None):
     """Least time for the function: bytes (each (B,S,H,D) tensor and each
-    per-row f32 statistic moved once), tensor/FMA flops (2*S*S*D per head
-    and product), and exponentials on the SFUs. Defaults: the forward (q,
-    k, v, out; lse; 2 products). dQ: 5 tensors, lse and delta, 3 products;
-    dK/dV: 6 tensors, 4 products."""
+    per-row f32 statistic moved once), tensor/FMA flops (2*S*Skv*D per head
+    and product), and exponentials on the SFUs (S*Skv per head). Defaults:
+    the forward (q, k, v, out; lse; 2 products) of self-attention (Skv =
+    S). dQ: 5 tensors, lse and delta, 3 products; dK/dV: 6 tensors, 4
+    products. A forward with ``Skv`` keys moves k and v as (B,Skv,H,D)."""
     elt = 2 if dtype == "bfloat16" else 4
-    nbytes = tensors * B * S * H * D * elt + stats * 4 * B * H * S
+    Skv = S if Skv is None else Skv
+    kv_tensors = 2 if Skv != S else 0
+    nbytes = (((tensors - kv_tensors) * S + kv_tensors * Skv) * B * H * D
+              * elt + stats * 4 * B * H * S)
     t_bytes = nbytes / HBM_BPS
-    t_flops = 2 * products * B * H * S * S * D / PEAK_FLOPS[dtype]
-    t_exp = B * H * S * S / (SFU_PER_CLK_PER_SM * NUM_SMS * sm_clock_hz)
+    t_flops = 2 * products * B * H * S * Skv * D / PEAK_FLOPS[dtype]
+    t_exp = B * H * S * Skv / (SFU_PER_CLK_PER_SM * NUM_SMS * sm_clock_hz)
     t = max(t_bytes, t_flops, t_exp)
     by = "bytes" if t == t_bytes else "operations"
     detail = {t_bytes: "hbm", t_flops: "mma", t_exp: "exp"}[t]
@@ -613,6 +655,230 @@ def phase_gn_kernels(fn):
             del x, y, ref
     torch.cuda.empty_cache()
     return rows
+
+
+def sd_supported():
+    """Whether the package under test has the ``sd21base`` preset (and so
+    a B1 that takes keys of their own length)."""
+    from superdiff_torch.models import presets
+
+    return "sd21base" in getattr(presets, "_SD_PRESETS", {})
+
+
+def phase_sd_kernels(fa, sm_clock_hz):
+    """B1 against its plain version at SD_ATTN_SHAPES, bf16 and f32 (3d of
+    the module docstring), with times, the bound and SDPA's time."""
+    import torch
+    import torch.nn.functional as F
+
+    rows = {}
+    dev = torch.device("cuda")
+    for (B, S, Skv, H, D) in SD_ATTN_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).replace("torch.", "")
+            g = torch.Generator(device=dev).manual_seed(B * S + Skv + D)
+            # q from its own projection, k and v from theirs: (B, L, H*D)
+            # rows viewed as heads, as Attention hands them to the kernel
+            q = torch.randn((B, S, H * D), generator=g, device=dev).to(
+                dtype).view(B, S, H, D)
+            k, v = (torch.randn((B, Skv, H * D), generator=g,
+                                device=dev).to(dtype).view(B, Skv, H, D)
+                    for _ in range(2))
+            n0 = fa.launches
+            out, lse = fa._flash_forward(q, k, v)
+            torch.cuda.synchronize()
+            if fa.launches != n0 + 1:
+                raise AssertionError("kernel launch was not counted")
+            ref_out, ref_lse = fa._flash_forward_plain(q, k, v)
+            err = (out.float() - ref_out.float()).abs().max().item()
+            lse_err = (lse - ref_lse).abs().max().item()
+            del ref_out, ref_lse
+            if not (torch.isfinite(out.float()).all() and
+                    err <= TOL[dname]["out"] and
+                    lse_err <= TOL[dname]["lse"]):
+                raise AssertionError(
+                    f"flash kernel disagrees with plain at "
+                    f"{(B, S, H, D)} Skv {Skv} {dname}: out err {err:.3e}, "
+                    f"lse err {lse_err:.3e}")
+            out2, lse2 = fa._flash_forward(q, k, v)
+            if not (torch.equal(out, out2) and torch.equal(lse, lse2)):
+                raise AssertionError(f"flash kernel rerun at {(B, S, H, D)} "
+                                     f"Skv {Skv} {dname} gave other bits")
+            warps, bk, mt, grid, _ = fa._fwd_geometry(B, S, H, D,
+                                                      q.element_size())
+            big = S * Skv >= 4096 * 4096
+            call = lambda: fa._flash_forward(q, k, v)
+            ms = cuda_time_ms(call, 20 if big else 50)
+            dev_ms = kernel_device_ms(call)
+            plain_ms = cuda_time_ms(
+                lambda: fa._flash_forward_plain(q, k, v), 3 if big else 20)
+            torch.cuda.empty_cache()
+            qh, kh, vh = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+            sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh)
+            lib_ms = cuda_time_ms(sdpa, 50)
+            lib_dev_ms = kernel_device_ms(sdpa, kernel=None)
+            b_ms, b_by, b_detail = bound(B, S, H, D, dname, sm_clock_hz,
+                                         Skv=Skv)
+            timed = isinstance(dev_ms, float)
+            row = dict(shape=[B, S, H, D], Skv=Skv, dtype=dname,
+                       max_abs_err=err, lse_max_abs_err=lse_err,
+                       rerun_bit_equal=True, ms=ms, kernel_device_ms=dev_ms,
+                       plain_ms=plain_ms, library_ms=lib_ms,
+                       library_device_ms=lib_dev_ms, bound_ms=b_ms,
+                       bound_by=b_by, bound_resource=b_detail,
+                       roofline_share=b_ms / ms,
+                       device_roofline_share=b_ms / dev_ms if timed
+                       else "not measured",
+                       device_tflops=4 * B * H * S * Skv * D / dev_ms / 1e9
+                       if timed else "not measured",
+                       geometry=dict(warps=warps, bk=bk, mt=mt,
+                                     grid=list(grid)))
+            rows[(B, S, Skv, H, D, dname)] = row
+            log("sd_kernel_check " + json.dumps(row))
+            del q, k, v, qh, kh, vh, out, out2
+        torch.cuda.empty_cache()
+    return rows
+
+
+def sd_b1_key(S, Skv, D, dname="bfloat16"):
+    """B1's counter key of a launch (``ops/flash_attention.py``)."""
+    return (S, D, dname) + (() if Skv == S else (Skv,))
+
+
+def phase_sd_call(fa, fn):
+    """One full-width sd21base call at 16 rows under the bf16 sampling
+    policy: B1 and B4 launches counted through the wrappers against the
+    call's shapes, the call's time, then B4 at each chain shape against the
+    plain chain (3e of the module docstring)."""
+    import torch
+
+    from superdiff_torch.inference import apply_sampling_policy
+    from superdiff_torch.models.presets import build_model
+    from superdiff_torch.tools import tune_group_norm as tg
+
+    torch.manual_seed(16)
+    model = build_model("sd21base", num_classes=0,
+                        compute_dtype=torch.bfloat16, device="cuda").eval()
+    apply_sampling_policy(model)
+    g = torch.Generator(device="cuda").manual_seed(16)
+    x = torch.randn((16, 64, 64, 4), generator=g, device="cuda")
+    t = torch.full((16,), 500, dtype=torch.long, device="cuda")
+    ctx = torch.randn((16, 77, 1024), generator=g, device="cuda")
+
+    def call():
+        with torch.no_grad():
+            return model(x, t, ctx)
+
+    fa.reset_launches()
+    fn.reset_launches()
+    out = call()
+    torch.cuda.synchronize()
+    b1, b4 = dict(fa.launches_by_shape), dict(fn.launches_by_shape)
+    # transformer blocks per level: 5 at 64², 32² and 16², 1 at 8² (mid)
+    want = {}
+    for (_, S, Skv, _, D) in SD_ATTN_SHAPES:
+        want[sd_b1_key(S, Skv, D)] = 1 if S == 64 else 5
+    if b1 != want or sum(b1.values()) != SD_CALL_B1:
+        raise AssertionError(f"one sd21base call launched B1 {b1}, expected "
+                             f"{want}")
+    if sum(b4.values()) != SD_CALL_B4:
+        raise AssertionError(f"one sd21base call launched B4 "
+                             f"{sum(b4.values())} times, expected "
+                             f"{SD_CALL_B4}: {b4}")
+    if out.shape != x.shape or not torch.isfinite(out).all():
+        raise AssertionError(f"sd21base call gave {tuple(out.shape)}, finite "
+                             "or not")
+    call_ms = cuda_time_ms(call, 10)
+    rows = []
+    for key, count in sorted(b4.items()):
+        H, W, C, G, film, dname = key
+        picked = fn.launch_geometry(16, H * W, C, G, getattr(torch, dname),
+                                    model.norm_dtype, True).regime
+        row = tg.chain_row(fn, 16, key, count, model.norm_dtype, (picked,))
+        if row.get("failed"):
+            raise AssertionError(f"policy-mode B4 disagrees with the plain "
+                                 f"chain at SD's {key}: {json.dumps(row)}")
+        rows.append(row)
+        log("sd_chain " + json.dumps(row))
+    del model, out
+    torch.cuda.empty_cache()
+    return dict(b1={str(k): n for k, n in b1.items()},
+                b4={str(k): n for k, n in b4.items()}, call_ms_16_rows=call_ms,
+                rows=rows, summary=tg.summarize(rows, ()),
+                b1_counts=b1)
+
+
+def b1_time_row(row, name):
+    """The times and bound of one B1 kernel-check row, for the kernels
+    line."""
+    return dict(name=name, route="cuda", source=KERNEL_SRC,
+                replaces=TPU_KERNEL, max_abs_err=row["max_abs_err"],
+                ms=row["ms"], kernel_device_ms=row["kernel_device_ms"],
+                plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                bound_by=row["bound_by"],
+                bound_resource=row["bound_resource"],
+                device_roofline_share=row["device_roofline_share"],
+                library_ms=row["library_ms"],
+                library_device_ms=row["library_device_ms"])
+
+
+def sd_kernel_rows(sd_rows, sd_call):
+    """The kernels line's rows of the SD call: B1 at each launch shape
+    (bf16) and B4 at each chain shape, each with its launches per call."""
+    kernels = []
+    for (B, S, Skv, H, D) in SD_ATTN_SHAPES:
+        kernels.append(dict(
+            b1_time_row(sd_rows[(B, S, Skv, H, D, "bfloat16")],
+                        f"flash_attn_fwd[bf16 B{B} Sq{S} Skv{Skv} H{H} D{D} "
+                        "SD]"),
+            sd_call_launches=sd_call["b1_counts"].get(sd_b1_key(S, Skv, D),
+                                                      0)))
+    for r in sd_call["rows"]:
+        B, H, W, C = r["shape"]
+        picked = next(v for k, v in r.items() if k.endswith("*"))
+        kernels.append(dict(
+            name=f"group_norm_silu_policy[bf16 B{B} {H}x{W} C{C} "
+                 f"G{r['groups']} SD]",
+            route="cuda", source=GN_SRC, replaces=TPU_GN,
+            sd_call_launches=r["launches_per_call"],
+            regime=picked["geometry"]["regime"],
+            max_abs_err=picked["max_abs_err"], max_ulps=picked["max_ulps"],
+            share_differing=picked["share_differing"], ms=picked["ms"],
+            kernel_device_ms=picked["device_ms"], plain_ms=r["plain_ms"],
+            plain_device_ms=r["plain_device_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"],
+            library_device_ms=r["library_device_ms"]))
+    return kernels
+
+
+def kernels_only(fa, fn, card_line, sm_clock_hz):
+    """``--kernels``: phases 3a, 3d and 3e alone, and their kernels line
+    (B1 at the path shapes and, where the package has them, the SD call's
+    B1 and B4 rows)."""
+    import torch
+
+    rows = phase_kernels(fa, sm_clock_hz)
+    log(f"phase 3a forward kernel checks: {len(rows)} shape/dtype cases "
+        "agree")
+    kernels = [b1_time_row(rows[(B, S, H, D, "bfloat16")],
+                           f"flash_attn_fwd[bf16 B{B} S{S} H{H} D{D}]")
+               for (B, S, H, D) in PATH_SHAPES]
+    if sd_supported():
+        sd_rows = phase_sd_kernels(fa, sm_clock_hz)
+        log(f"phase 3d SD B1 checks: {len(sd_rows)} shape/dtype cases agree")
+        sd_call = phase_sd_call(fa, fn)
+        log(f"phase 3e sd21base call at 16 rows ({card_line}): "
+            + json.dumps({k: v for k, v in sd_call.items()
+                          if k not in ("rows", "b1_counts")}))
+        kernels += sd_kernel_rows(sd_rows, sd_call)
+    else:
+        log(f"phase 3d-3e: the package at {PKG_ROOT} has no sd21base")
+    print(card_line)
+    print(json.dumps({"kernels": kernels, "package": PKG_ROOT}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
 
 
 def wide256_norm_chains(fn, model):
@@ -3572,6 +3838,8 @@ def main() -> int:
     build_s = time.time() - tic
     log(f"phase 2 build: {sorted(so.name for so in sos.values())} in "
         f"{build_s:.3f} s (one nvcc per source, started together)")
+    if "--kernels" in sys.argv[1:]:
+        return kernels_only(fa, fn, card_line, sm_clock_hz)
 
     rows = phase_kernels(fa, sm_clock_hz)
     log(f"phase 3a forward kernel checks: {len(rows)} shape/dtype cases "
@@ -3581,6 +3849,12 @@ def main() -> int:
         "dtype cases agree")
     gn_rows = phase_gn_kernels(fn)
     log(f"phase 3c B4 checks: {len(gn_rows)} shape/dtype cases agree")
+    sd_rows = phase_sd_kernels(fa, sm_clock_hz)
+    log(f"phase 3d SD B1 checks: {len(sd_rows)} shape/dtype cases agree")
+    sd_call = phase_sd_call(fa, fn)
+    log(f"phase 3e sd21base call at 16 rows ({card_line}): "
+        + json.dumps({k: v for k, v in sd_call.items()
+                      if k not in ("rows", "b1_counts")}))
 
     work = tempfile.mkdtemp(prefix="superdiff_smoke_")
     run1, run2 = os.path.join(work, "run1"), os.path.join(work, "run2")
@@ -3874,6 +4148,7 @@ def main() -> int:
         if kernels[-1]["launches"] == 0:
             raise AssertionError(f"B4 never launched at the SmallCNN shape "
                                  f"{(B, H, W, C)} in cli.evaluate")
+    kernels += sd_kernel_rows(sd_rows, sd_call)
     print(card_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

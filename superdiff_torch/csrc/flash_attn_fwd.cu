@@ -8,9 +8,13 @@
 // K/V through a two-stage shared-memory ring, with the running max, sum and
 // output in registers.
 //
-// Layout: q, k, v are read as (B, S, H, D) through the element strides the
-// caller passes (last dim contiguous, rows 16-byte aligned), so the split
-// views of a fused qkv projection go in without transpose copies. out is
+// Layout: q is read as (B, S, H, D) and k, v as (B, Skv, H, D) through the
+// element strides the caller passes (last dim contiguous, rows 16-byte
+// aligned), so the split views of a fused qkv projection go in without
+// transpose copies. Skv = S is self-attention; cross-attention (Stable
+// Diffusion's 77 text tokens against S up to 4096 latent positions) has keys
+// and values of a length of their own, and only the K/V loop reads Skv: its
+// tile count, its loads and the mask of its partial last tile. out is
 // written as (B, S, H, D) through its strides; lse is (B*H, S) float32 with
 // row b*H + h, the layout the backward kernels read.
 //
@@ -173,7 +177,7 @@ struct Args {
   const void* v;
   void* out;
   float* lse;
-  int S, H;
+  int S, Skv, H;
   float scale;
   int64_t q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
   int64_t o_sb, o_ss, o_sh;
@@ -198,7 +202,7 @@ flash_fwd_kernel(const Args a) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, c = lane % 4;
   const int warps = blockDim.x / 32;
-  const int S = a.S;
+  const int S = a.S, Skv = a.Skv;
   const int bh = blockIdx.x;
   const int b = bh / a.H, h = bh % a.H;
   const int q0 = blockIdx.y * WR * warps;
@@ -214,10 +218,10 @@ flash_fwd_kernel(const Args a) {
 
   // Q and tile 0 of K and V: one commit group
   load_rows_async<T, D>(s_base, qbase, a.q_ss, q0, WR * warps, S);
-  load_rows_async<T, D>(s_kv, kbase, a.k_ss, 0, BK, S);
-  load_rows_async<T, D>(s_kv + L::TILE, vbase, a.v_ss, 0, BK, S);
+  load_rows_async<T, D>(s_kv, kbase, a.k_ss, 0, BK, Skv);
+  load_rows_async<T, D>(s_kv + L::TILE, vbase, a.v_ss, 0, BK, Skv);
   cp_async_commit();
-  const int ntiles = (S + BK - 1) / BK;
+  const int ntiles = (Skv + BK - 1) / BK;
 
   float o[MT][DT][4];
   float m[MT][2], l[MT][2];   // running max (log2 units); lane-partial sums
@@ -240,8 +244,8 @@ flash_fwd_kernel(const Args a) {
     __syncthreads();      // tile t landed for all; tile t-1 fully consumed
     if (t + 1 < ntiles) { // prefetch tile t+1 into tile t-1's stage
       const uint32_t dst = s_kv + ((t + 1) % STAGES) * 2 * L::TILE;
-      load_rows_async<T, D>(dst, kbase, a.k_ss, kv0 + BK, BK, S);
-      load_rows_async<T, D>(dst + L::TILE, vbase, a.v_ss, kv0 + BK, BK, S);
+      load_rows_async<T, D>(dst, kbase, a.k_ss, kv0 + BK, BK, Skv);
+      load_rows_async<T, D>(dst + L::TILE, vbase, a.v_ss, kv0 + BK, BK, Skv);
       cp_async_commit();
     }
     const uint32_t sk = s_kv + (t % STAGES) * 2 * L::TILE;
@@ -297,15 +301,16 @@ flash_fwd_kernel(const Args a) {
       }
     }
 
-    // ---- ragged last tile: keys past S get the finite -1e30
-    if (kv0 + BK > S) {
+    // ---- ragged last tile: keys past Skv get the finite -1e30 (exp2 of it
+    // is 0, so they add nothing to the row's sum or output)
+    if (kv0 + BK > Skv) {
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
         for (int n = 0; n < NT; ++n)
 #pragma unroll
           for (int e = 0; e < 4; ++e)
-            if (kv0 + 8 * n + 2 * c + (e & 1) >= S) s[mt][n][e] = NEG_BIG;
+            if (kv0 + 8 * n + 2 * c + (e & 1) >= Skv) s[mt][n][e] = NEG_BIG;
     }
 
     // ---- online softmax in the log2 domain, per row: the max of the raw
@@ -522,19 +527,21 @@ cudaError_t info(int warps, int* res) {
 #define SUPERDIFF_FWD_CASES(X) SUPERDIFF_FWD_TILES(X)
 #endif
 
-// strides: 12 element strides, (batch, seq, head) for q, k, v, out in that
-// order. Geometry: warps (1..8) per block, each owning 16 * mt query rows;
+// S: query (and output) rows; Skv: key and value rows. strides: 12 element
+// strides, (batch, seq, head) for q, k, v, out in that order. Geometry: warps (1..8) per block, each owning 16 * mt query rows;
 // bk keys per K/V tile. Returns the cudaError_t of the launch (0 =
 // success); a geometry that is not built returns cudaErrorInvalidValue
 // without launching.
 extern "C" int superdiff_flash_attn_fwd(const void* q, const void* k,
                                         const void* v, void* out, float* lse,
-                                        int B, int S, int H, int D, int dtype,
+                                        int B, int S, int Skv, int H, int D,
+                                        int dtype,
                                         float scale, const long long* st,
                                         int warps, int bk, int mt,
                                         void* stream) {
-  if (warps < 1 || warps > MAX_WARPS) return (int)cudaErrorInvalidValue;
-  const Args a{q, k, v, out, lse, S, H, scale, st[0], st[1], st[2], st[3],
+  if (warps < 1 || warps > MAX_WARPS || Skv < 1)
+    return (int)cudaErrorInvalidValue;
+  const Args a{q, k, v, out, lse, S, Skv, H, scale, st[0], st[1], st[2], st[3],
                st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define SUPERDIFF_CASE(DT, T, DD, BKK, MTT)                       \

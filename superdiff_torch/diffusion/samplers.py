@@ -48,16 +48,22 @@ def _guided_eps(model_fn: ModelFn,
                 t: torch.Tensor,
                 y: Optional[torch.Tensor],
                 guidance_scale: float,
-                null_label: int) -> torch.Tensor:
+                null) -> torch.Tensor:
     """Epsilon prediction with optional classifier-free guidance: the
-    conditional and unconditional halves go through as one 2B call."""
+    conditional and unconditional halves go through as one 2B call. ``y``
+    is ``(B,)`` labels with ``null`` the null label (an int), or a ``(B, L,
+    C)`` float context with ``null`` the null context (``(L, C)`` or ``(1,
+    L, C)``, a tensor)."""
     if y is None:
         return model_fn(x, t)
     if guidance_scale == 1.0:
         return model_fn(x, t, y)
     x2 = torch.cat([x, x], dim=0)
     t2 = torch.cat([t, t], dim=0)
-    y2 = torch.cat([y, torch.full_like(y, null_label)], dim=0)
+    if y.is_floating_point():
+        y2 = torch.cat([y, null.expand(y.shape)], dim=0)
+    else:
+        y2 = torch.cat([y, torch.full_like(y, null)], dim=0)
     eps_c, eps_u = model_fn(x2, t2, y2).chunk(2, dim=0)
     return eps_u + guidance_scale * (eps_c - eps_u)
 
@@ -108,7 +114,12 @@ class SamplerPlan:
     device. The timestep of each step (``t``) and the method's per-step
     coefficients are tables of length :attr:`num_steps`; the sample ``x``,
     the step's noise draw ``z``, the step index ``pos`` (a ``(1,)`` long
-    tensor), the labels ``y`` and the method's own state are buffers.
+    tensor), the conditioning ``y`` and the method's own state are buffers.
+    ``y`` is ``(B,)`` class labels (guidance pairs them with
+    ``null_label``), or a ``(B, L, C)`` float text context (guidance pairs
+    it with ``null_context``, ``(L, C)``, held in a buffer too): one
+    captured step serves every chain's contexts, copied in by
+    :meth:`start`.
     :meth:`step` reads the tables at ``pos`` on the device, updates the
     buffers in place and advances ``pos``: it never reads a value back to
     the host, so the eager samplers loop over it and
@@ -130,6 +141,7 @@ class SamplerPlan:
                  shape: Tuple[int, ...], t: torch.Tensor,
                  y: Optional[torch.Tensor] = None,
                  guidance_scale: float = 1.0, null_label: int = 0,
+                 null_context: Optional[torch.Tensor] = None,
                  dtype=torch.float32, rows: Optional[slice] = None):
         dev = schedule.device
         self.schedule, self.model_fn = schedule, model_fn
@@ -146,8 +158,17 @@ class SamplerPlan:
         self.z = (torch.zeros(self.shape, dtype=dtype, device=dev)
                   if self.draws_noise else None)
         self.pos = torch.zeros((1,), dtype=torch.long, device=dev)
-        self.y = (None if y is None
-                  else self._mine(y.to(device=dev, dtype=torch.long)).clone())
+        self.null_context = None
+        if y is not None and y.is_floating_point():
+            if null_context is None and guidance_scale != 1.0:
+                raise ValueError("guidance over a context needs "
+                                 "null_context=")
+            self.y = self._mine(y.to(dev)).clone()
+            if null_context is not None:
+                self.null_context = null_context.to(dev, y.dtype).clone()
+        else:
+            self.y = (None if y is None else
+                      self._mine(y.to(device=dev, dtype=torch.long)).clone())
 
     def _mine(self, a: torch.Tensor) -> torch.Tensor:
         """This plan's rows of a whole-batch tensor."""
@@ -155,7 +176,8 @@ class SamplerPlan:
 
     def start(self, x_init: torch.Tensor,
               y: Optional[torch.Tensor] = None) -> None:
-        """Reset the state for a new run from ``x_init`` (and new labels)."""
+        """Reset the state for a new run from ``x_init`` (and new labels or
+        contexts, copied into the plan's buffer)."""
         self.x.copy_(self._mine(x_init))
         self.pos.zero_()
         if y is not None:
@@ -184,9 +206,10 @@ class SamplerPlan:
         return self.x
 
     def _eps(self, t: torch.Tensor) -> torch.Tensor:
+        null = (self.null_label if self.null_context is None
+                else self.null_context)
         return _guided_eps(self.model_fn, self.x, t.expand(self.shape[0]),
-                           self.y, self.guidance_scale,
-                           self.null_label).to(self.dtype)
+                           self.y, self.guidance_scale, null).to(self.dtype)
 
     def _reset(self) -> None:
         pass

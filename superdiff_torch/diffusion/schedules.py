@@ -1,7 +1,9 @@
 """Diffusion noise schedules as device tensors.
 
 Port of ``superdiff_tpu/diffusion/schedules.py``: linear betas via
-``linspace(beta_start, beta_end, T)``, ``alphas = 1 - betas``,
+``linspace(beta_start, beta_end, T)`` (or Stable Diffusion's
+``scaled_linear``, ``linspace(sqrt(beta_start), sqrt(beta_end), T)**2``),
+``alphas = 1 - betas``,
 ``alpha_bars = cumprod(alphas)``. Every derived quantity is computed once in
 float64 on the host and stored as a float32 tensor on the target device, so
 the samplers index it without host round-trips.
@@ -44,6 +46,15 @@ def linear_betas(num_timesteps: int = 1000,
     return np.linspace(beta_start, beta_end, num_timesteps, dtype=np.float64)
 
 
+def scaled_linear_betas(num_timesteps: int = 1000,
+                        beta_start: float = 0.00085,
+                        beta_end: float = 0.012) -> np.ndarray:
+    """Stable Diffusion's ``scaled_linear`` schedule: linear in
+    ``sqrt(beta)``, squared (float64, host)."""
+    return np.linspace(beta_start ** 0.5, beta_end ** 0.5, num_timesteps,
+                       dtype=np.float64) ** 2
+
+
 def cosine_betas(num_timesteps: int = 1000, s: float = 0.008,
                  max_beta: float = 0.999) -> np.ndarray:
     """Cosine schedule from Improved DDPM (Nichol & Dhariwal 2021, eq. 17)."""
@@ -56,6 +67,7 @@ def cosine_betas(num_timesteps: int = 1000, s: float = 0.008,
 
 _SCHEDULES = {
     "linear": linear_betas,
+    "scaled_linear": scaled_linear_betas,
     "cosine": cosine_betas,
 }
 
@@ -70,8 +82,8 @@ def make_schedule(num_timesteps: int = 1000,
     Derived quantities are computed in float64 on the host, then cast to
     float32 (a float32 cumprod over 1000 terms loses a few ulps).
     """
-    if kind == "linear":
-        betas = linear_betas(num_timesteps, beta_start, beta_end)
+    if kind in ("linear", "scaled_linear"):
+        betas = _SCHEDULES[kind](num_timesteps, beta_start, beta_end)
     elif kind == "cosine":
         betas = cosine_betas(num_timesteps)
     else:

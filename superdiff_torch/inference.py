@@ -23,8 +23,11 @@ from superdiff_torch.diffusion.schedules import DiffusionSchedule, make_schedule
 from superdiff_torch.models.presets import model_from_config
 
 # Parameters that stay float32 under the sampling dtype policy: norm
-# scales/biases, the conditioning MLPs, and the float32 output conv.
-_F32_NAME_TOKENS = ("norm", "time_mlp", "class_emb", "emb_proj", "out_conv")
+# scales/biases, the conditioning MLPs, and the float32 output conv (the
+# CondUNet's and the RefUNet's names, then the SDUNet's: its norms' names
+# hold "norm", its ResBlocks' time projection "emb_proj")
+_F32_NAME_TOKENS = ("norm", "time_mlp", "class_emb", "emb_proj", "out_conv",
+                    "time_embedding", "conv_out")
 
 
 def _keeps_f32(name: str) -> bool:
@@ -190,7 +193,13 @@ def make_eps_fn_p(model, label=None,
 
     For conditional models ``label=None`` means the null (unconditional)
     label and an int broadcasts over the batch. v/x0-headed models are
-    converted to eps (``schedule`` required for those)."""
+    converted to eps (``schedule`` required for those).
+
+    A text-conditioned model (``context_dim`` > 0, the SDUNet) takes its
+    context mode: ``label="context"`` gives ``fn(m, x, t, context)`` with a
+    ``(B, L, C)`` context per call (a plan's context buffer), and a float
+    tensor ``(L, C)`` or ``(B, L, C)`` binds that context, ``fn(m, x,
+    t)``."""
     kind = getattr(model, "parameterization", "eps")
     if kind != "eps" and schedule is None:
         raise ValueError(
@@ -204,6 +213,20 @@ def make_eps_fn_p(model, label=None,
         from superdiff_torch.diffusion.process import eps_from_pred
         return eps_from_pred(schedule, x, t, pred, kind)
 
+    if getattr(model, "context_dim", 0):
+        if isinstance(label, str) and label == "context":
+            return _apply
+        if not (isinstance(label, torch.Tensor) and label.is_floating_point()
+                and label.ndim in (2, 3)):
+            raise ValueError(
+                "a text-conditioned model takes label='context' or a bound "
+                "(L, C) / (B, L, C) float context")
+        bound = label if label.ndim == 3 else label[None]
+
+        def fn_ctx(m, x, t):
+            return _apply(m, x, t, bound.expand(x.shape[0], *bound.shape[1:]))
+
+        return fn_ctx
     conditional = getattr(model, "num_classes", 0) > 0
     if not conditional or label == "per_sample":
         return _apply

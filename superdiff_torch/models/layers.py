@@ -58,16 +58,21 @@ def _same_pad(n: int, k: int, s: int):
 
 
 def conv_nhwc(m: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype,
-              stride: int = 1, bias: bool = True) -> torch.Tensor:
+              stride: int = 1, bias: bool = True,
+              padding: Optional[int] = None) -> torch.Tensor:
     """Flax ``nn.Conv(padding="SAME", dtype=dtype)`` on an NHWC tensor
-    (``bias=False`` leaves the bias out).
+    (``bias=False`` leaves the bias out); ``padding`` an int pads every
+    side by it instead (PyTorch's ``Conv2d(padding=p)``).
 
     SAME padding is computed as Flax does: a 3x3 stride-2 conv on an even
     size pads ``(0, 1)``, not ``(1, 1)``."""
     xc = x.to(dtype).permute(0, 3, 1, 2)            # NCHW, channels-last view
     kh, kw = m.kernel_size
-    (pt, pb), (pl, pr) = (_same_pad(xc.shape[2], kh, stride),
-                          _same_pad(xc.shape[3], kw, stride))
+    if padding is not None:
+        (pt, pb), (pl, pr) = (padding, padding), (padding, padding)
+    else:
+        (pt, pb), (pl, pr) = (_same_pad(xc.shape[2], kh, stride),
+                              _same_pad(xc.shape[3], kw, stride))
     if pt == pb and pl == pr:
         padding = (pt, pl)
     else:

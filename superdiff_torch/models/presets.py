@@ -11,6 +11,7 @@ from typing import Any, Dict
 
 import torch
 
+from superdiff_torch.models.sd_unet import SDUNet
 from superdiff_torch.models.unet import CondUNet
 from superdiff_torch.models.unet_ref import RefUNet
 
@@ -59,6 +60,18 @@ _PRESETS: Dict[str, Dict[str, Any]] = {
                     num_heads=4, pixel_shuffle=2),
 }
 
+# Stable Diffusion 2.1-base's UNet (stabilityai/stable-diffusion-2-1-base,
+# unet/config.json): 64x64x4 latents, a 77 x 1024 text context, every
+# attention head 64 wide
+_SD_PRESETS: Dict[str, Dict[str, Any]] = {
+    "sd21base": dict(sample_size=64, in_channels=4, out_channels=4,
+                     block_out_channels=(320, 640, 1280, 1280),
+                     layers_per_block=2, attention_head_dim=(5, 10, 20, 20),
+                     cross_attention_levels=(True, True, True, False),
+                     cross_attention_dim=1024, norm_num_groups=32,
+                     norm_eps=1e-5, freq_shift=0.0),
+}
+
 RESOLUTION_TO_PRESET = {64: "small64", 128: "base128", 256: "wide256"}
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -73,6 +86,11 @@ def build_model(preset: str = "small64",
     """Build a CondUNet from a named preset (+ field overrides) for
     ``resolution``² inputs (default: the preset's working resolution).
 
+    ``"sd21base"`` builds Stable Diffusion 2.1-base's
+    :class:`~superdiff_torch.models.sd_unet.SDUNet` (``resolution`` is the
+    latent side, 64 by default); it is conditioned on a text context, so
+    ``num_classes`` does not apply to it.
+
     ``"ref"`` builds the RefUNet from its own graph fields only; the
     conditioning and dtype-policy fields do not exist on that graph, and
     ``parameterization`` is kept (it is what the head's output means)."""
@@ -81,9 +99,16 @@ def build_model(preset: str = "small64",
             k: v for k, v in overrides.items()
             if k in ("in_channels", "out_channels", "time_emb_dim",
                      "base_channels", "parameterization")})
+    if preset in _SD_PRESETS:
+        cfg = dict(_SD_PRESETS[preset])
+        cfg.update(overrides)
+        if resolution is not None:
+            cfg["sample_size"] = resolution
+        return SDUNet(compute_dtype=compute_dtype, device=device, **cfg)
     if preset not in _PRESETS:
         raise ValueError(
-            f"unknown preset {preset!r} (have {['ref'] + sorted(_PRESETS)})")
+            f"unknown preset {preset!r} (have "
+            f"{['ref'] + sorted(_PRESETS) + sorted(_SD_PRESETS)})")
     if resolution is None:
         resolution = int("".join(c for c in preset if c.isdigit()))
     cfg = dict(_PRESETS[preset])

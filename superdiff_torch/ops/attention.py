@@ -1,8 +1,12 @@
-"""Self-attention op: the hand-written flash kernel, or plain math.
+"""Attention op: the hand-written flash kernel, or plain math.
 
 Port of ``superdiff_tpu/ops/attention.py``. One public signature,
 
-    out = multihead_attention(q, k, v)   # (B, S, H, D) each
+    out = multihead_attention(q, k, v)   # q (B, S, H, D), k, v (B, Skv, H, D)
+
+``Skv = S`` is self-attention; cross-attention (Stable Diffusion's UNet
+attending to a 77-token text context) passes keys and values of their own
+length, and takes the same kernel.
 
 Dispatch: every call whose head dim and dtype the CUDA kernel takes goes to
 :func:`superdiff_torch.ops.flash_attention.flash_attention` (which runs the
@@ -41,7 +45,8 @@ def _math_attention(q: torch.Tensor, k: torch.Tensor,
 
 def multihead_attention(q: torch.Tensor, k: torch.Tensor,
                         v: torch.Tensor) -> torch.Tensor:
-    """Multi-head attention, ``(B, S, H, D)`` layout, no masking (images)."""
+    """Multi-head attention, ``(B, S, H, D)`` queries against ``(B, Skv, H,
+    D)`` keys and values, no masking (images)."""
     if kernel_supports(q):
         return flash_attention(q, k, v)
     return _math_attention(q, k, v)

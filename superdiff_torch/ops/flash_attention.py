@@ -9,8 +9,11 @@ reference ties them with ``jax.custom_vjp``. The sources are CUDA C++ for
 
 Contracts:
 
-- ``q, k, v``: ``(B, S, H, D)``, any strides with a contiguous last dim,
-  bfloat16 or float32, ``D`` in {32, 64, 128}, any ``S``;
+- ``q``: ``(B, S, H, D)``, ``k, v``: ``(B, Skv, H, D)``, any strides with a
+  contiguous last dim, bfloat16 or float32, ``D`` in {32, 64, 128}, any
+  ``S`` and ``Skv``: ``Skv = S`` is self-attention, another ``Skv``
+  cross-attention (the forward only; the backward kernels take ``Skv =
+  S``);
 - :func:`_flash_forward` returns ``(out (B, S, H, D) in the input dtype,
   lse (B*H, S) float32)``;
 - :func:`_flash_backward` ``(q, k, v, out, lse, g) -> (dq, dk, dv)`` in the
@@ -31,7 +34,9 @@ same functions in plain PyTorch with the kernels' roundings. Under
 ``torch.func.vmap`` (stacked models) the forward goes through the
 registered op ``superdiff::flash_attn_fwd``, whose vmap rule folds the
 mapped axis into the batch: one launch for all mapped calls. ``launches``,
-``bwd_dq_launches`` and ``bwd_dkv_launches`` count kernel launches;
+``bwd_dq_launches`` and ``bwd_dkv_launches`` count kernel launches, and
+the ``*_by_shape`` dicts count them by ``(S, D, dtype name)``, with ``Skv``
+appended where it is not ``S`` (a cross-attention launch);
 ``captured_by_shape`` (``bwd_dq_captured_by_shape``,
 ``bwd_dkv_captured_by_shape``) counts the forward (backward) launches
 among them that were recorded into a CUDA graph (made under stream
@@ -54,7 +59,7 @@ SUPPORTED_HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 
 launches = 0                 # forward kernel launches since the last reset
-launches_by_shape = {}       # (S, D, dtype name) -> launches, same events
+launches_by_shape = {}       # (S, D, dtype name[, Skv]) -> launches
 captured_by_shape = {}       # the same, of launches made under capture
 bwd_dq_launches = 0          # dQ kernel launches since the last reset
 bwd_dq_launches_by_shape = {}
@@ -75,16 +80,21 @@ def reset_launches() -> None:
     bwd_dkv_captured_by_shape.clear()
 
 
-def _shape_key(q) -> tuple:
-    return (q.shape[1], q.shape[3], str(q.dtype).replace("torch.", ""))
+def _shape_key(q, k=None) -> tuple:
+    """``(S, D, dtype name)``, and ``Skv`` after them where ``k``'s length
+    is not ``S``."""
+    key = (q.shape[1], q.shape[3], str(q.dtype).replace("torch.", ""))
+    if k is not None and k.shape[1] != q.shape[1]:
+        key += (k.shape[1],)
+    return key
 
 
 def _load(which: str, defines=()):
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     tail = [i32] * 5 + [ctypes.c_float, ptr] + [i32] * 3 + [ptr]
-    if which == "fwd":
+    if which == "fwd":            # (..., B, S, Skv, H, D, dtype, ...)
         return _build.load("fwd", {
-            "superdiff_flash_attn_fwd": [ptr] * 5 + tail,
+            "superdiff_flash_attn_fwd": [ptr] * 5 + [i32] + tail,
             "superdiff_flash_attn_fwd_info": [i32] * 5 + [ptr]}, defines)
     return _build.load("bwd", {
         "superdiff_flash_attn_bwd_dq": [ptr] * 7 + tail,
@@ -92,9 +102,16 @@ def _load(which: str, defines=()):
         "superdiff_flash_attn_bwd_info": [i32] * 6 + [ptr]}, defines)
 
 
-def _check(q, k, v):
-    if q.ndim != 4 or q.shape != k.shape or q.shape != v.shape:
-        raise ValueError(f"q, k, v must share one (B, S, H, D) shape, got "
+def _check(q, k, v, same_length: bool = False):
+    """q ``(B, S, H, D)``, k and v ``(B, Skv, H, D)`` (``Skv = S`` where
+    ``same_length``: the backward kernels)."""
+    if (q.ndim != 4 or k.shape != v.shape or k.ndim != 4
+            or (q.shape[0], q.shape[2], q.shape[3])
+            != (k.shape[0], k.shape[2], k.shape[3])
+            or (same_length and k.shape[1] != q.shape[1])):
+        want = ("one (B, S, H, D) shape" if same_length else
+                "(B, S, H, D) and (B, Skv, H, D) shapes")
+        raise ValueError(f"q, k, v must have {want}, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     if not (q.dtype == k.dtype == v.dtype):
@@ -203,15 +220,15 @@ def _launch_fwd(q, k, v, warps: int, bk: int, mt: int, defines=()):
         stream = torch.cuda.current_stream().cuda_stream
         err = _load("fwd", defines).superdiff_flash_attn_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), B, S, H, D, _DTYPE_CODE[q.dtype],
+            lse.data_ptr(), B, S, k.shape[1], H, D, _DTYPE_CODE[q.dtype],
             1.0 / math.sqrt(D), strides, warps, bk, mt, stream)
     if err != 0:
         raise RuntimeError(f"flash_attn_fwd launch failed: CUDA error {err} "
-                           f"(shape {tuple(q.shape)}, {q.dtype}, warps "
-                           f"{warps}, bk {bk}, mt {mt})")
+                           f"(shape {tuple(q.shape)}, Skv {k.shape[1]}, "
+                           f"{q.dtype}, warps {warps}, bk {bk}, mt {mt})")
     global launches
     launches += 1
-    key = _shape_key(q)
+    key = _shape_key(q, k)
     launches_by_shape[key] = launches_by_shape.get(key, 0) + 1
     if torch.cuda.is_current_stream_capturing():
         captured_by_shape[key] = captured_by_shape.get(key, 0) + 1
@@ -243,7 +260,8 @@ def _flash_forward_cuda(q, k, v):
 
 
 def _flash_forward_plain(q, k, v):
-    """Plain PyTorch version: f32 scores, full softmax, logsumexp.
+    """Plain PyTorch version: f32 scores, full softmax over the ``Skv``
+    keys, logsumexp.
 
     ``P`` is rounded to the input dtype before ``P.V`` as in the kernel."""
     B, S, H, D = q.shape
@@ -265,7 +283,8 @@ def _flash_forward_impl(q, k, v):
 
 
 def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
-    """``(out (B,S,H,D), lse (B*H, S) f32)``; kernel on CUDA, plain on CPU.
+    """``(out (B,S,H,D), lse (B*H, S) f32)`` of ``q`` against ``k, v``
+    ``(B, Skv, H, D)``; kernel on CUDA, plain on CPU.
     Inside ``torch.func.vmap`` the call goes through the registered op
     ``superdiff::flash_attn_fwd``, whose vmap rule folds the mapped axis
     into the batch."""
@@ -512,7 +531,7 @@ def flash_backward_hop(q, k, v, g, lse, delta):
     S)`` float32) taken from the whole row, which may span other blocks:
     the two backward kernels on CUDA, their plain versions on the CPU
     (context parallelism's backward hop, ``parallel/cp.py``)."""
-    _check(q, k, v)
+    _check(q, k, v, same_length=True)
     if q.is_cuda:
         return _bwd_cuda(q, k, v, g, lse, delta)
     if q.device.type != "cpu":
@@ -523,8 +542,9 @@ def flash_backward_hop(q, k, v, g, lse, delta):
 
 
 def _flash_backward(q, k, v, o, lse, g):
-    """``(dq, dk, dv)``; the two kernels on CUDA, the plain version on CPU."""
-    _check(q, k, v)
+    """``(dq, dk, dv)``; the two kernels on CUDA, the plain version on CPU.
+    Self-attention only (``Skv = S``)."""
+    _check(q, k, v, same_length=True)
     B, S, H, D = q.shape
     if o.shape != q.shape or g.shape != q.shape or lse.shape != (B * H, S):
         raise ValueError(f"out / grad must be {tuple(q.shape)} and lse "
@@ -560,7 +580,8 @@ class FlashAttentionFn(torch.autograd.Function):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor,
                     v: torch.Tensor) -> torch.Tensor:
-    """Flash attention, ``(B, S, H, D)`` -> ``(B, S, H, D)``, no mask.
+    """Flash attention, ``q (B, S, H, D)`` against ``k, v (B, Skv, H, D)``
+    -> ``(B, S, H, D)``, no mask.
 
     Differentiable: when autograd is recording and an input needs a gradient
     the call goes through :class:`FlashAttentionFn`; otherwise only the

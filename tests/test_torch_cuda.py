@@ -7,6 +7,7 @@ machine without jax (skip the JAX conftest there):
 """
 
 import itertools
+import math
 
 import pytest
 import torch
@@ -1238,3 +1239,97 @@ def test_graphed_train_step_with_remat_and_accumulation_on_card(cuda):
         assert gap <= 1e-5
     finally:
         torch.backends.cudnn.deterministic = False
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,Sq,Skv,H,D", [(2, 4096, 77, 5, 64),
+                                          (2, 4096, 4096, 5, 64),
+                                          (3, 1024, 13, 2, 32),
+                                          (1, 256, 130, 2, 128),
+                                          (2, 64, 77, 20, 64)])
+def test_kernel_with_keys_of_their_own_length_matches_plain_on_card(
+        cuda, B, Sq, Skv, H, D, dtype):
+    """Cross-attention (Stable Diffusion's 77 text tokens, a key tile left
+    partial) and self-attention at 4,096 positions: B1 against its plain
+    version, tolerances as in the self-attention test; a rerun gives the
+    same bits; the launch is counted under ``(Sq, D, dtype, Skv)`` where
+    ``Skv`` differs from ``Sq``."""
+    g = torch.Generator(device=cuda).manual_seed(Sq + Skv)
+    q = torch.randn((B, Sq, H, D), generator=g, device=cuda).to(dtype)
+    kv = torch.randn((B, Skv, 2 * H * D), generator=g, device=cuda).to(dtype)
+    k, v = (a.view(B, Skv, H, D) for a in kv.split(H * D, dim=-1))
+    fa.reset_launches()
+    out, lse = fa._flash_forward(q, k, v)
+    torch.cuda.synchronize()
+    key = (Sq, D, str(dtype)[6:]) + ((Skv,) if Skv != Sq else ())
+    assert fa.launches_by_shape == {key: 1}
+    ref_out, ref_lse = fa._flash_forward_plain(q, k, v)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(out.float(), ref_out.float(), rtol=tol,
+                               atol=tol)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-4, atol=1e-4)
+    out2, lse2 = fa._flash_forward(q, k, v)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+
+
+def _sd_weights(shapes, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    P = {}
+    for name, shape in shapes.items():
+        w = torch.randn(shape, generator=g, device=dev)
+        if len(shape) > 1:
+            w = w * math.prod(shape[1:]) ** -0.5
+        elif "norm" in name and name.endswith("weight"):
+            w = 1.0 + 0.1 * w
+        else:
+            w = 0.05 * w
+        P[name] = w
+    return P
+
+
+@pytest.mark.cuda
+def test_sd21base_call_under_the_sampling_policy_on_card(cuda):
+    """One full-width ``sd21base`` call at 2 images (4 rows, the guided
+    pair) under ``apply_sampling_policy``: B1 runs all 32 attention
+    products (16 self, 16 cross-attention to 77 tokens) and B4 all 45
+    GroupNorm -> SiLU chains, and the output holds to the float32 plain
+    reference (TF32 off) on the same bf16-rounded weights within 5e-2
+    relative L2: bf16 roundings carried through ~70 layers in series."""
+    import plain_sd_unet as plain
+
+    from superdiff_torch.inference import _keeps_f32, apply_sampling_policy
+    from superdiff_torch.models.presets import build_model
+
+    shapes = plain.param_shapes(dict(
+        widths=(320, 640, 1280, 1280), heads=(5, 10, 20, 20),
+        cross_levels=(True, True, True, False), layers_per_block=2,
+        context_dim=1024, in_channels=4, out_channels=4))
+    P = _sd_weights(shapes, cuda)
+    model = build_model("sd21base", num_classes=0,
+                        compute_dtype=torch.bfloat16, device="meta")
+    model = model.to_empty(device=cuda)
+    model.load_state_dict(P, strict=True)
+    apply_sampling_policy(model.eval())
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn((4, 64, 64, 4), generator=g, device=cuda)
+    t = torch.tensor([980, 980, 500, 500], device=cuda)
+    ctx = torch.randn((4, 77, 1024), generator=g, device=cuda)
+    fa.reset_launches()
+    fn.reset_launches()
+    with torch.no_grad():
+        out = model(x, t, ctx)
+        torch.cuda.synchronize()
+        assert fa.launches == 32 and fn.launches == 45
+        assert sum(n for k, n in fa.launches_by_shape.items()
+                   if len(k) == 4 and k[3] == 77) == 16
+        ref_P = {k: v if _keeps_f32(k) else v.bfloat16().float()
+                 for k, v in P.items()}
+        with plain.no_tf32():
+            ref = plain.forward(ref_P, dict(
+                widths=(320, 640, 1280, 1280), heads=(5, 10, 20, 20),
+                cross_levels=(True, True, True, False), layers_per_block=2,
+                groups=32, norm_eps=1e-5), x, t, ctx)
+    rel = float((out.double() - ref.double()).norm() / ref.double().norm())
+    print(f"sd21base bf16 policy vs float32 reference: rel L2 {rel:.3e}")
+    assert out.dtype == torch.float32 and rel < 5e-2
