@@ -84,8 +84,10 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
        both of its regimes against the plain chain (within 2 bf16 ulps,
        under 1 % of elements differing; the counts printed), with B4's
        device time, the bound, the plain chain's and the F.group_norm +
-       F.silu yardstick's, and the plain chain's forward + backward under
-       the training policy (what a B4 backward kernel would take over);
+       F.silu yardstick's; the training chain (float32 norm dtype): B4's
+       backward kernel in both regimes against the plain closed form, and
+       B4's forward + backward device time beside the bound, the plain
+       chain's and the library's under autograd;
        and the attention blocks' GroupNorm (no SiLU, not routed to B4);
    (c) superdiff_torch.cli.sample SuperDiff OR and AND of two differently
        seeded wide256 models, batch 4, T=1000, graphed; OR also eagerly
@@ -101,7 +103,8 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    diffusion/graphed.py counted in the run (run_launches: 51 B4 per DDPM
    replay), and the profiler counts the kernels of graph replays as a
    cross-check;
-5. the training slice, full-width wide256 at 256², bf16 compute:
+5. the training slice, full-width wide256 at 256², bf16 compute, float32
+   norm dtype (the benchmark's training policy) in (b)-(e):
    (a) one loss at batch 2: gradients through the kernels against gradients
        through their plain versions on the card (relative L2 over all leaves,
        and per leaf for every attention block's qkv and proj weights);
@@ -111,11 +114,12 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
        finite and falling on the fixed stream; the train step one CUDA
        graph (one eager warm-up step, one capture holding exactly 8/8/8
        launches of B1/B2/B3, replays for the other steps, the replayed
-       share of each epoch's steps) and 8 of B1 per validation batch; no B4
-       in a train step (the chains run under autograd) and 51 per
-       validation batch;
+       share of each epoch's steps) and 8 of B1 per validation batch; 51
+       B4 forward and 51 B4 backward launches in the captured train step
+       and 51 B4 per validation batch;
    (c) a short leg with model.remat=true and training.grad_accum=2 (16 B1
-       launches per microbatch), and one in which this script swaps the
+       launches per microbatch; B4 51 forward, 50 recomputed and 51
+       backward per microbatch), and one in which this script swaps the
        backward kernels for autograd of the plain softmax attention, for its
        time only (the package has no such switch);
    (d) a train step alone on a fixed batch, replayed from its graph:
@@ -178,7 +182,8 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
        (the tree's val split, wrap-padded): images/s and ms per step of the
        second epoch, the profiled device idle share, the val loss, 8/8/8
        B1/B2/B3 in the captured train step (one capture, replays for the
-       rest), 0 B4 per train step and 51 per validation batch;
+       rest), 51 B4 forward and 51 backward per train step (float32 norm
+       dtype) and 51 per validation batch;
    (c) superdiff_torch.cli.evaluate on the tree run: DDIM-100 graphed, 64
        samples at batch 16, FID against the test split under the
        classifier (artifacts/extractors/smallcnn_trained_256.npz),
@@ -202,10 +207,11 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
        4, 2 and 1 steps, one epoch per phase, batch 16, wide256 at 256²
        (bf16 compute): per phase ms per step and images/s over the steps
        after the first, first and last loss (finite), peak memory; the
-       launches over the run, exactly 24 B1, 8 B2, 8 B3 and 102 B4 per
-       step; then a distillation step alone on a tree batch: the same
-       counts in one step, 16 B1 and 102 B4 in the teacher's two calls
-       alone (so 0 B4 from the student), CUDA-event ms, and a profiler
+       launches over the run, exactly 24 B1, 8 B2, 8 B3, 153 B4 and 51 B4
+       backward per step; then a distillation step alone on a tree batch:
+       the same counts in one step, 16 B1 and 102 B4 in the teacher's two
+       calls alone (so 51 B4 forward and 51 backward from the student, the
+       tree run's float32 norm dtype), CUDA-event ms, and a profiler
        window over 3 steps and over 3 teacher rollouts (device busy, idle
        share, the teacher calls' share of the step's device time);
    (d) one step at batch 2, kernels (B1-B4) against their plain versions
@@ -395,12 +401,15 @@ SMALLCNN_FEAT_TOL = 1e-4
 SMALLCNN_FID_TOL = 1e-3
 # phase 8a: the committed JPEG fixtures (copied into the tree as well)
 JPEG_FIXTURES = os.path.join(HERE, "tests", "torch_jpeg")
+# the training legs' norm dtype (the benchmark's training policy): the
+# chains of a train step run B4's forward and its backward kernel, 51 each
+TRAIN_NORM = ["--set", "model.norm_dtype=float32"]
 # phase 9: progressive distillation of the tree-trained wide256 run; per
 # distillation step (conditional, batch 16): B1 8 per teacher call (2) and 8
 # in the student's forward; B2 / B3 8 in its backward; B4 51 per teacher
-# call and none in the student (its chains run under autograd)
+# call and 51 in the student's forward, and 51 B4 backward launches
 DISTILL_STEPS = (4, 2, 1)
-DISTILL_PER_STEP = (24, 8, 8, 2 * WIDE256_CALLS_B4)
+DISTILL_PER_STEP = (24, 8, 8, 3 * WIDE256_CALLS_B4, WIDE256_CALLS_B4)
 TEACHER_CALLS_PER_STEP = (16, 2 * WIDE256_CALLS_B4)    # (B1, B4)
 
 
@@ -890,10 +899,12 @@ def wide256_norm_chains(fn, model):
     plain chain (tools/tune_group_norm.py::chain_row: bf16 ulps and the
     share of elements that differ at all), with B4's device time, the
     bound, the plain chain's and the F.group_norm + F.silu yardstick's; and
-    the plain chain's forward and forward + backward device time under the
-    training policy (float32 norm passes, autograd), the work of a B4
-    backward kernel; and the attention blocks' GroupNorm (no SiLU, not
-    routed to B4): shapes, calls and device time."""
+    the training chain (float32 norm dtype, a gradient wanted:
+    tools/tune_group_norm.py::train_chain_row): B4's backward kernel in
+    both regimes against the plain closed form, and the device time of B4's
+    forward + backward beside the bound, the plain chain's and the
+    library's under autograd; and the attention blocks' GroupNorm (no SiLU,
+    not routed to B4): shapes, calls and device time."""
     import torch
 
     from superdiff_torch.models.layers import SelfAttention2D
@@ -932,29 +943,15 @@ def wide256_norm_chains(fn, model):
         if row.get("failed"):
             raise AssertionError(f"policy-mode B4 disagrees with the plain "
                                  f"chain at {key}: {json.dumps(row)}")
-        H, W, C, G, film, dname = key
-        leaves = [a.detach().requires_grad_() if a is not None else None
-                  for a in tg.chain_inputs(16, H, W, C, film,
-                                           getattr(torch, dname))]
-        g = torch.randn((16, H, W, C), device="cuda")
-
-        def fwd():
-            return fn.gn_film_silu_policy_plain(
-                leaves[0], leaves[1], leaves[2], G, torch.float32,
-                leaves[3], leaves[4])
-
-        row["train_chain_fwd_device_ms"] = kernel_device_ms(fwd, kernel=None)
-        wanted = [a for a in leaves if a is not None]
-        row["train_chain_fwd_bwd_device_ms"] = kernel_device_ms(
-            lambda: torch.autograd.grad(fwd(), wanted, g), kernel=None)
+        row["train"] = tg.train_chain_row(fn, 16, key, count)
+        if row["train"].get("failed"):
+            raise AssertionError(f"B4's backward disagrees with the plain "
+                                 f"closed form at {key}: "
+                                 f"{json.dumps(row['train'])}")
         rows.append(row)
         log("wide256_chain " + json.dumps(row))
     summary = tg.summarize(rows, regimes)
-    for k in ("train_chain_fwd_device_ms", "train_chain_fwd_bwd_device_ms"):
-        vals = [r[k] for r in rows]
-        summary[k] = (sum(r["launches_per_call"] * r[k] for r in rows)
-                      if all(isinstance(v, float) for v in vals)
-                      else "not measured")
+    summary["train"] = tg.summarize_train([r["train"] for r in rows])
     summary["attention_norm"] = dict(
         rows=attn_rows, calls=sum(r["calls"] for r in attn_rows),
         device_ms_per_call=(sum(r["calls"] * r["device_ms"]
@@ -1107,7 +1104,8 @@ def train_step_alone(fa, tcfg, model_from_config, make_schedule, training,
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    cfg = tcfg.load_config(None, [a for a in WIDE256 if a != "--set"])
+    cfg = tcfg.load_config(None, [a for a in WIDE256 + TRAIN_NORM
+                                  if a != "--set"])
     model = model_from_config(cfg, device="cuda").init_parameters(0)
     schedule = make_schedule(1000, device="cuda")
     state = training.create_train_state(
@@ -1195,7 +1193,7 @@ def phase_training(fa, fn, work, run1, tcfg, model_from_config, load_run,
     tic = time.time()
     main_dir, metrics = run_train_cli(
         train_cli, work, "main", B, EPOCHS, STEPS,
-        ["--set", f"training.eval_batches={VAL}"])
+        ["--set", f"training.eval_batches={VAL}", *TRAIN_NORM])
     main_s = time.time() - tic
     counts = flash_counts(fa)
     train_launches = dict(fwd=dict(fa.launches_by_shape),
@@ -1209,8 +1207,10 @@ def phase_training(fa, fn, work, run1, tcfg, model_from_config, load_run,
         raise AssertionError(f"training launched (B1, B2, B3) = {counts}, "
                              f"expected {expect}")
     check_train_graph(fa, training.steps, n_steps, (8, 8, 8), "training")
-    # B4 in the validation batches (no gradients), not in the train steps
-    check_b4(fn.launches, EPOCHS * VAL, "training (validation batches)")
+    # B4 forward and backward in the warm-up step and the capture (51 each),
+    # forward alone in the validation batches
+    C4 = WIDE256_CALLS_B4
+    check_train_b4(fn, C4 * (2 + EPOCHS * VAL), 2 * C4, (C4, C4), "training")
     tr, va = epoch_rows(metrics, "avg_loss"), epoch_rows(metrics, "val_loss")
     losses = [m["avg_loss"] for m in tr] + [m["val_loss"] for m in va]
     if len(tr) != EPOCHS or len(va) != EPOCHS or not np.isfinite(losses).all():
@@ -1230,7 +1230,7 @@ def phase_training(fa, fn, work, run1, tcfg, model_from_config, load_run,
         graph_replay_share_by_epoch=[m["graph_replay_share"] for m in tr],
         grad_norm_last=tr[-1]["grad_norm"], peak_mem_gb=peak_gb,
         launches=dict(B1=counts[0], B2=counts[1], B3=counts[2],
-                      B4=fn.launches),
+                      B4=fn.launches, B4_backward=fn.bwd_launches),
         launches_by_shape={k: {str(s): n for s, n in v.items()}
                            for k, v in train_launches.items()},
         whole_leg_s=main_s)
@@ -1241,11 +1241,12 @@ def phase_training(fa, fn, work, run1, tcfg, model_from_config, load_run,
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launches()
+    fn.reset_launches()
     training.steps.reset_counts()
     _, m_remat = run_train_cli(
         train_cli, work, "remat", B, 2, 4,
         ["--set", "model.remat=true", "--set", "training.grad_accum=2",
-         "--set", "training.eval_every=0"])
+         "--set", "training.eval_every=0", *TRAIN_NORM])
     counts = flash_counts(fa)
     if counts != (2 * 32, 2 * 16, 2 * 16):
         raise AssertionError(f"remat + grad_accum=2 launched {counts} in its "
@@ -1253,12 +1254,17 @@ def phase_training(fa, fn, work, run1, tcfg, model_from_config, load_run,
                              "32)")
     check_train_graph(fa, training.steps, 8, (32, 16, 16),
                       "remat + grad_accum=2")
+    # per microbatch 51 forward, 50 recomputed (the ResBlocks'; out_norm is
+    # outside the checkpointed blocks) and 51 backward; two a step
+    check_train_b4(fn, 2 * 2 * (2 * C4 - 1), 2 * 2 * C4,
+                   (2 * (2 * C4 - 1), 2 * C4), "remat + grad_accum=2")
     tr = epoch_rows(m_remat, "avg_loss")
     out["remat_accum2"] = dict(
         batch=B, ms_per_step=B / tr[-1]["images_per_sec"] * 1e3,
         images_per_s=tr[-1]["images_per_sec"],
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-        launches_per_step=dict(B1=32, B2=16, B3=16),
+        launches_per_step=dict(B1=32, B2=16, B3=16, B4=2 * (2 * C4 - 1),
+                               B4_backward=2 * C4),
         train_loss_by_epoch=[m["avg_loss"] for m in tr])
     log("phase 5c remat + grad_accum=2: " + json.dumps(out["remat_accum2"]))
     fa.reset_launches()
@@ -1288,11 +1294,13 @@ def phase_training(fa, fn, work, run1, tcfg, model_from_config, load_run,
     torch.backends.cudnn.deterministic = True
     try:
         straight, _ = run_train_cli(train_cli, work, "straight", 4, 2, 2,
-                                    ["--set", "training.eval_every=0"])
+                                    ["--set", "training.eval_every=0",
+                                     *TRAIN_NORM])
         run_train_cli(train_cli, work, "resumed", 4, 1, 2,
-                      ["--set", "training.eval_every=0"])
+                      ["--set", "training.eval_every=0", *TRAIN_NORM])
         resumed, _ = run_train_cli(train_cli, work, "resumed", 4, 2, 2,
-                                   ["--set", "training.eval_every=0"])
+                                   ["--set", "training.eval_every=0",
+                                    *TRAIN_NORM])
     finally:
         torch.backends.cudnn.deterministic = False
     a = load_checkpoint_file(os.path.join(straight, "checkpoints"), 4)
@@ -2303,7 +2311,7 @@ def phase_data_eval(fa, fn, work, card_line):
         with contextlib.redirect_stdout(buf):
             rc = train_cli.main([
                 *src, "--device", "cuda", "--experiment-id", "smoke8",
-                "--run-id", leg, *WIDE256,
+                "--run-id", leg, *WIDE256, *TRAIN_NORM,
                 "--set", "training.batch_size=16",
                 "--set", "training.num_epochs=2",
                 "--set", "training.eval_every=2",
@@ -2330,7 +2338,9 @@ def phase_data_eval(fa, fn, work, card_line):
                                  f"{counts}, expected {expect}")
         check_train_graph(fa, train_steps, 2 * steps, (8, 8, 8),
                           f"{leg} training")
-        check_b4(fn.launches, vb, f"{leg} training (validation batches)")
+        C4 = WIDE256_CALLS_B4
+        check_train_b4(fn, C4 * (2 + vb), 2 * C4, (C4, C4),
+                       f"{leg} training")
         if len(tr) != 2 or len(va) != 1 or not np.isfinite(
                 [m["avg_loss"] for m in tr] + [va[0]["val_loss"]]).all():
             raise AssertionError(f"{leg} training metrics: {metrics}")
@@ -2342,7 +2352,8 @@ def phase_data_eval(fa, fn, work, card_line):
             val_loss=va[0]["val_loss"], val_batches=vb,
             train_loss_by_epoch=[m["avg_loss"] for m in tr],
             profiled_device_busy_ms=busy, device_idle_share=idle,
-            b4_per_train_step=0, b4_per_val_batch=fn.launches // vb,
+            b4_per_train_step=C4, b4_backward_per_train_step=C4,
+            b4_per_val_batch=(fn.launches - 2 * C4) // vb,
             whole_leg_s=time.time() - tic)
         if leg == "tree":
             tree_run = run_dir
@@ -2504,8 +2515,9 @@ def phase_data_eval(fa, fn, work, card_line):
 
 
 def distill_counts(fa, fn):
-    """(B1, B2, B3, B4) launches through the wrappers since the reset."""
-    return flash_counts(fa) + (fn.launches,)
+    """(B1, B2, B3, B4, B4 backward) launches through the wrappers since
+    the reset."""
+    return flash_counts(fa) + (fn.launches, fn.bwd_launches)
 
 
 def phase_distill(fa, fn, work, card_line, tree_run, root):
@@ -2559,7 +2571,8 @@ def phase_distill(fa, fn, work, card_line, tree_run, root):
     counts = distill_counts(fa, fn)
     expect = tuple(n * steps for n in DISTILL_PER_STEP)
     if counts != expect:
-        raise AssertionError(f"cli.distill launched (B1, B2, B3, B4) = "
+        raise AssertionError(f"cli.distill launched (B1, B2, B3, B4, B4 "
+                             f"backward) = "
                              f"{counts} over {steps} steps, expected "
                              f"{expect}")
     launches = dict(fwd=dict(fa.launches_by_shape),
@@ -2571,7 +2584,7 @@ def phase_distill(fa, fn, work, card_line, tree_run, root):
             raise AssertionError(f"distillation phase {p}: loss not finite")
     out["cli"] = dict(
         seconds=cli_s, steps=steps, steps_per_phase=summary["steps_per_epoch"],
-        launches_per_step=dict(zip(("B1", "B2", "B3", "B4"),
+        launches_per_step=dict(zip(("B1", "B2", "B3", "B4", "B4_backward"),
                                    (n // steps for n in counts))),
         phases=[{k: v for k, v in p.items() if k != "out"}
                 for p in summary["phases"]])
@@ -2631,7 +2644,8 @@ def phase_distill(fa, fn, work, card_line, tree_run, root):
     per_teacher = (fa.launches, fn.launches)
     if (per_step != DISTILL_PER_STEP
             or per_teacher != TEACHER_CALLS_PER_STEP):
-        raise AssertionError(f"a distillation step launched (B1, B2, B3, B4)"
+        raise AssertionError(f"a distillation step launched (B1, B2, B3, B4,"
+                             f" B4 backward)"
                              f" = {per_step} (expected {DISTILL_PER_STEP}); "
                              f"its teacher calls (B1, B4) = {per_teacher} "
                              f"(expected {TEACHER_CALLS_PER_STEP})")
@@ -2662,11 +2676,13 @@ def phase_distill(fa, fn, work, card_line, tree_run, root):
         teacher_share_of_device_busy=(
             t_busy / busy if isinstance(busy, float)
             and isinstance(t_busy, float) else "not measured"),
-        launches_per_step=dict(zip(("B1", "B2", "B3", "B4"), per_step)),
+        launches_per_step=dict(zip(("B1", "B2", "B3", "B4", "B4_backward"),
+                                   per_step)),
         teacher_launches_per_step=dict(zip(("B1", "B4"), per_teacher)),
         student_launches_per_step=dict(
             B1=per_step[0] - per_teacher[0], B2=per_step[1],
-            B3=per_step[2], B4=per_step[3] - per_teacher[1]),
+            B3=per_step[2], B4=per_step[3] - per_teacher[1],
+            B4_backward=per_step[4]),
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     log(f"phase 9a distillation step alone ({card_line}): "
         + json.dumps(out["step"]))
@@ -2696,7 +2712,7 @@ def phase_distill(fa, fn, work, card_line, tree_run, root):
                                        st.opt_state["mu"]],
                     distill_counts(fa, fn))
         del st
-    if res["kernels"][2] != DISTILL_PER_STEP or res["plain"][2] != (0,) * 4:
+    if res["kernels"][2] != DISTILL_PER_STEP or res["plain"][2] != (0,) * 5:
         raise AssertionError(f"kernel / plain passes launched "
                              f"{res['kernels'][2]} / {res['plain'][2]}")
     (loss_k, mu_k, _), (loss_p, mu_p, _) = res["kernels"], res["plain"]
@@ -3790,6 +3806,18 @@ def check_train_graph(fa, train_steps, n_steps, per_step, what):
     if captured != tuple(per_step):
         raise AssertionError(f"{what}: the captured step holds (B1, B2, B3) "
                              f"= {captured}, expected {tuple(per_step)}")
+
+
+def check_train_b4(fn, fwd, bwd, captured, what):
+    """B4 in a training run at the float32 norm dtype: ``fwd`` forward and
+    ``bwd`` backward launches through the wrappers, and the captured train
+    step holding ``captured`` = (forward, backward) launches."""
+    got = (fn.launches, fn.bwd_launches, sum(fn.captured_by_shape.values()),
+           sum(fn.bwd_captured_by_shape.values()))
+    if got != (fwd, bwd, *captured):
+        raise AssertionError(f"{what}: B4 (forward, backward, captured "
+                             f"forward, captured backward) = {got}, "
+                             f"expected {(fwd, bwd, *captured)}")
 
 
 def check_b4(launches, calls, what):

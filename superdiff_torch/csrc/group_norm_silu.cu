@@ -57,11 +57,18 @@
 //
 // Loads and stores are 16 bytes along the flat axis (VEC = 4 float32 or 8
 // bfloat16) when H*W*C and the addresses allow, else scalar.
+//
+// Training (policy mode, TN = float32, a gradient wanted) launches the
+// forward with its statistics written out (the ParamsStats instantiations:
+// per (sample, group) the mean and rsqrt(var + eps) it used), then the
+// backward below (gn_bwd_*), which recomputes the chain from x and them.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -105,6 +112,32 @@ struct Params {
   int C, G, policy;
   float inv_count, eps;
 };
+
+// Params of a training forward: also writes each (sample, group)'s mean and
+// rsqrt(var + eps) to stats[2 * (b * G + g) + {0, 1}]. The sampling path
+// launches the Params instantiations, whose code does not write them.
+struct ParamsStats : Params {
+  float* stats;
+};
+
+template <typename P>
+constexpr bool kStats = std::is_same_v<P, ParamsStats>;
+
+// A group's mean and rsqrt(var + eps) from its float32 sums, as make_chan
+// forms them in policy mode.
+__device__ __forceinline__ void write_stats(const ParamsStats& p, int b,
+                                            int g, float s, float q) {
+  const float mean = s * p.inv_count;
+  const float var = fmaxf(
+      __fsub_rn(__fmul_rn(q, p.inv_count), __fmul_rn(mean, mean)), 0.f);
+  p.stats[2 * ((long long)b * p.G + g)] = mean;
+  p.stats[2 * ((long long)b * p.G + g) + 1] = rsqrtf(__fadd_rn(var, p.eps));
+}
+template <typename P>
+__device__ __forceinline__ void maybe_write_stats(const P& p, int b, int g,
+                                                  float s, float q) {
+  if constexpr (kStats<P>) write_stats(p, b, g, s, q);
+}
 
 // The chain's inputs for one (sample, channel), read before the
 // statistics are known: gamma, beta and the FiLM operands (policy mode: 1 +
@@ -391,9 +424,9 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 // One cluster of K blocks per sample (the regime the module header
 // describes). iters: block steps per block; resident: how many of them sit
 // in shared memory (the rest stream from global memory, twice).
-template <typename T, typename TN, int VEC>
+template <typename T, typename TN, int VEC, typename P>
 __global__ void __launch_bounds__(kClusterThreads, 2)
-    gn_cluster(Params p, int iters, int resident) {
+    gn_cluster(P p, int iters, int resident) {
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int K = (int)cluster.num_blocks();
@@ -523,6 +556,7 @@ __global__ void __launch_bounds__(kClusterThreads, 2)
     }
     gsum[g] = gs;
     gsum[G + g] = gq;
+    if (rank == 0) maybe_write_stats(p, b, g, gs, gq);
   }
   __syncthreads();
   Chan ch[VEC];
@@ -574,8 +608,8 @@ __global__ void gn_stats(const T* __restrict__ x, float* __restrict__ psum,
 // channel, each over every P-th tile, then the P slices in order), then
 // over each group's channels, in a fixed order; the chain's constants per
 // (sample, channel)
-template <typename TN>
-__global__ void gn_finalize(Params p, const float* __restrict__ psum,
+template <typename TN, typename PT>
+__global__ void gn_finalize(PT p, const float* __restrict__ psum,
                             const float* __restrict__ psq,
                             Chan* __restrict__ chan, int tiles) {
   extern __shared__ float part[];   // 2 P C slice sums, then 2 C totals
@@ -613,6 +647,7 @@ __global__ void gn_finalize(Params p, const float* __restrict__ psum,
     }
     chan[(long long)b * C + c] =
         make_chan(p, s, q, load_chan_in<TN>(p, b, c));
+    if (c == c0) maybe_write_stats(p, b, c / gw, s, q);
   }
 }
 
@@ -644,8 +679,8 @@ __global__ void gn_apply(Params p, const Chan* __restrict__ chan, int iters) {
   }
 }
 
-template <typename T, typename TN, int VEC>
-cudaError_t launch_three_pass(const Params& p, float* work, int B,
+template <typename T, typename TN, int VEC, typename P>
+cudaError_t launch_three_pass(const P& p, float* work, int B,
                               int threads, int iters, int tiles,
                               cudaStream_t st) {
   const long long n = p.hw * p.C;
@@ -661,10 +696,10 @@ cudaError_t launch_three_pass(const Params& p, float* work, int B,
       static_cast<const T*>(p.x), psum, psq, n, C, iters);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int P = C < 256 ? 256 / C : 1;      // as gn_finalize computes it
-  gn_finalize<TN><<<B, 256, (P > 1 ? 2 * P * C + 2 * C : 2 * C) *
-                                sizeof(float), st>>>(p, psum, psq, chan,
-                                                     tiles);
+  const int slices = C < 256 ? 256 / C : 1;  // as gn_finalize computes it
+  gn_finalize<TN, P><<<B, 256, (slices > 1 ? 2 * slices * C + 2 * C
+                                              : 2 * C) * sizeof(float),
+                        st>>>(p, psum, psq, chan, tiles);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if (p.policy)
@@ -674,8 +709,8 @@ cudaError_t launch_three_pass(const Params& p, float* work, int B,
   return cudaGetLastError();
 }
 
-template <typename T, typename TN, int VEC>
-cudaError_t launch_cluster(const Params& p, int B, int threads, int cluster,
+template <typename T, typename TN, int VEC, typename P>
+cudaError_t launch_cluster(const P& p, int B, int threads, int cluster,
                            int iters, int resident, int smem,
                            cudaStream_t st) {
   const int S = threads * VEC, C = p.C;
@@ -697,16 +732,472 @@ cudaError_t launch_cluster(const Params& p, int B, int threads, int cluster,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, gn_cluster<T, TN, VEC>, p, iters, resident);
+  return cudaLaunchKernelEx(&cfg, gn_cluster<T, TN, VEC, P>, p, iters,
+                            resident);
+}
+
+template <typename T, typename TN, int VEC, typename P>
+cudaError_t set_cluster_attributes() {
+  cudaError_t e = cudaFuncSetAttribute(
+      gn_cluster<T, TN, VEC, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kMaxSmem);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(gn_cluster<T, TN, VEC, P>,
+                              cudaFuncAttributeNonPortableClusterSizeAllowed,
+                              1);
 }
 
 template <typename T, typename TN, int VEC>
-cudaError_t set_cluster_attributes() {
-  cudaError_t e = cudaFuncSetAttribute(
-      gn_cluster<T, TN, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kMaxSmem);
-  if (e != cudaSuccess) return e;
-  return cudaFuncSetAttribute(gn_cluster<T, TN, VEC>,
+cudaError_t set_stats_cluster_attributes() {
+  if constexpr (std::is_same_v<TN, float>)
+    return set_cluster_attributes<T, TN, VEC, ParamsStats>();
+  else
+    return cudaSuccess;
+}
+
+// The statistics-writing forward, for the float32 norm dtype alone (the
+// training policy): other output dtypes are refused.
+template <typename T, typename TN, int VEC>
+cudaError_t launch_stats(const ParamsStats& p, float* work, int B, int regime,
+                         int threads, int cluster, int iters, int resident,
+                         int tiles, int smem, cudaStream_t st) {
+  if constexpr (std::is_same_v<TN, float>) {
+    if (regime == 1)
+      return launch_cluster<T, TN, VEC, ParamsStats>(p, B, threads, cluster,
+                                                     iters, resident, smem,
+                                                     st);
+    return launch_three_pass<T, TN, VEC, ParamsStats>(p, work, B, threads,
+                                                      iters, tiles, st);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+}
+
+// --- the backward (training: policy mode, TN = float32) ----------------------
+//
+// Replaces no TPU kernel: the JAX package differentiates its chain with XLA
+// autodiff (superdiff_tpu/ops/fused_norm.py::_fused_bwd). With the chain's
+// statistics from the forward (mean and r = rsqrt(var + eps) per sample and
+// group), in float32:
+//
+//   d = x - mean, v = (d * (r * gamma) + beta) * (1 + s) + t  (rounded as
+//     the forward rounds it), g_v = g * silu'(v);
+//   per (sample, channel) A = sum_hw g_v, B = r * sum_hw g_v * d;
+//   dt = A, ds = gamma B + beta A, dbeta = sum_b (1 + s) A,
+//     dgamma = sum_b (1 + s) B;
+//   dx = r gamma (1 + s) g_v - r S1 / N - d r^2 S2 / N, with S1, S2 the sums
+//     of gamma (1 + s) A and gamma (1 + s) B over the group's channels and N
+//     the group's element count.
+//
+// What bounds it: bytes. It reads x and g to form A and B, then reads them
+// again and writes dx: 14 bytes an element for bf16 x from HBM, 8 where the
+// second read hits L2; about 30 flops an element. Two regimes, as the
+// forward's (ops/fused_norm.py::backward_geometry):
+//
+//   gn_bwd_cluster for batches whose x and g fit in 64 MB: one cluster of
+//     K = 4-16 blocks per sample; each block sums A and B over its share per
+//     channel, every block reads all K blocks' partials in rank order through
+//     distributed shared memory, then writes dx for its share, reading x and
+//     g again from L2. x and g are not kept in shared memory: at 6 bytes an
+//     element a quarter of an SM holds a few percent of a block's share.
+//   three passes (gn_bwd_reduce, gn_bwd_finalize, gn_bwd_apply) above that
+//     (the CondUNet's 128^2 chains at batch 16), where they measured
+//     faster.
+//
+// Both end with gn_bwd_params, which sums the per-sample (1 + s) A and
+// (1 + s) B over the batch into dbeta and dgamma. Deterministic: fixed
+// reduction orders and no float atomics. Loads are 16 bytes of g (VEC = 4)
+// and 8 or 16 of x where the length and the addresses allow, else scalar.
+
+struct BwdParams {
+  const void* x;
+  const float* g;              // dL/dy, float32, x's layout
+  void* dx;
+  const float* stats;          // (B, G, 2): mean, rsqrt(var + eps)
+  const float* gamma;
+  const float* beta;
+  const float* scale;          // null: no FiLM
+  const float* shift;
+  long long film_ld;
+  long long hw;
+  int C, G;
+  float inv_count;
+  float* dscale;               // (B, C) when FiLM
+  float* dshift;
+  float* fsa;                  // (B, C): (1 + s) A and (1 + s) B
+  float* fsb;
+  float* dgamma;               // (C,)
+  float* dbeta;
+};
+
+// One (sample, channel)'s constants: the forward's chain (mean, mul = r *
+// gamma, add = beta, fs = 1 + s, sh = t) and dx's (k = mul * fs, c0, c1).
+struct BwdChan {
+  float mean, mul, add, fs, sh, k, c0, c1;
+};
+
+__device__ __forceinline__ long long stat_at(const BwdParams& p, int b,
+                                             int c) {
+  return 2 * ((long long)b * p.G + c / (p.C / p.G));
+}
+
+__device__ __forceinline__ float film_fs(const BwdParams& p, int b, int c) {
+  return p.scale == nullptr
+             ? 1.f
+             : __fadd_rn(1.f, p.scale[(long long)b * p.film_ld + c]);
+}
+
+__device__ __forceinline__ BwdChan load_bwd_chan(const BwdParams& p, int b,
+                                                 int c) {
+  BwdChan ch;
+  const long long sg = stat_at(p, b, c);
+  ch.mean = p.stats[sg];
+  ch.mul = __fmul_rn(p.stats[sg + 1], p.gamma[c]);
+  ch.add = p.beta[c];
+  ch.fs = film_fs(p, b, c);
+  ch.sh = p.scale == nullptr ? 0.f : p.shift[(long long)b * p.film_ld + c];
+  ch.k = ch.c0 = ch.c1 = 0.f;
+  return ch;
+}
+
+// g_v of one element, and d = x - mean; v as the forward computes it
+template <bool FILM>
+__device__ __forceinline__ float grad_v(float x, float g, const BwdChan& ch,
+                                        float& d) {
+  d = __fsub_rn(x, ch.mean);
+  float v = __fadd_rn(__fmul_rn(d, ch.mul), ch.add);
+  if constexpr (FILM) v = __fadd_rn(__fmul_rn(v, ch.fs), ch.sh);
+  const float sig = __frcp_rn(__fadd_rn(1.f, expf(-v)));
+  return g * (sig * fmaf(v, 1.f - sig, 1.f));
+}
+
+// Steps it0 .. it1 - 1 of this thread's slots of x and g, U at a time, loads
+// first: fn(x pack, g pack, element index).
+template <typename T, int VEC, int U, typename Fn>
+__device__ __forceinline__ void stream_xg(const T* xg, const float* gg,
+                                          long long base, long long n, int S,
+                                          int it0, int it1, Fn&& fn) {
+  for (int it = it0; it < it1; it += U) {
+    Pack<T, VEC> xv[U];
+    Pack<float, VEC> gv[U];
+    bool live[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long e = base + (long long)(it + u) * S;
+      live[u] = it + u < it1 && e < n;
+      if (live[u]) {
+        xv[u] = *reinterpret_cast<const Pack<T, VEC>*>(xg + e);
+        gv[u] = *reinterpret_cast<const Pack<float, VEC>*>(gg + e);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (live[u]) fn(xv[u], gv[u], base + (long long)(it + u) * S);
+  }
+}
+
+// Per-thread sums of g_v (sa) and g_v * d (sb) over this thread's slots
+template <typename T, int VEC, bool FILM>
+__device__ __forceinline__ void bwd_sums(const T* xb, const float* gb,
+                                         const BwdChan* ch, long long base,
+                                         long long n, int S, int iters,
+                                         float* sa, float* sb) {
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) sa[j] = sb[j] = 0.f;
+  stream_xg<T, VEC, kStreamU>(
+      xb, gb, base, n, S, 0, iters,
+      [&](const Pack<T, VEC>& xv, const Pack<float, VEC>& gv, long long) {
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          float d;
+          const float gvj = grad_v<FILM>(to_f(xv.v[j]), gv.v[j], ch[j], d);
+          sa[j] += gvj;
+          sb[j] = fmaf(gvj, d, sb[j]);
+        }
+      });
+}
+
+// dx over this thread's slots
+template <typename T, int VEC, bool FILM>
+__device__ __forceinline__ void bwd_dx(const T* xb, const float* gb, T* db,
+                                       const BwdChan* ch, long long base,
+                                       long long n, int S, int iters) {
+  stream_xg<T, VEC, kStreamU>(
+      xb, gb, base, n, S, 0, iters,
+      [&](const Pack<T, VEC>& xv, const Pack<float, VEC>& gv, long long e) {
+        Pack<T, VEC> r;
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          float d;
+          const float gvj = grad_v<FILM>(to_f(xv.v[j]), gv.v[j], ch[j], d);
+          r.v[j] = from_f<T>(
+              fmaf(ch[j].k, gvj, -fmaf(d, ch[j].c1, ch[j].c0)));
+        }
+        *reinterpret_cast<Pack<T, VEC>*>(db + e) = r;
+      });
+}
+
+// One channel of one sample, from its totals a = A and bs = sum g_v * d:
+// where `write`, its outputs (dt and ds where there is FiLM; (1 + s) A and
+// (1 + s) B for the batch sums); returns gamma (1 + s) A and gamma (1 + s) B
+// in a and bs, the terms of the group sums.
+__device__ __forceinline__ void bwd_channel(const BwdParams& p, int b, int c,
+                                            bool write, float& a, float& bs) {
+  const float B = p.stats[stat_at(p, b, c) + 1] * bs;
+  const float fs = film_fs(p, b, c);
+  if (write) {
+    const long long o = (long long)b * p.C + c;
+    if (p.scale != nullptr) {
+      p.dshift[o] = a;
+      p.dscale[o] = fmaf(p.gamma[c], B, p.beta[c] * a);
+    }
+    p.fsa[o] = fs * a;
+    p.fsb[o] = fs * B;
+  }
+  a = p.gamma[c] * (fs * a);
+  bs = p.gamma[c] * (fs * B);
+}
+
+// dx's constants of one (sample, channel) from its group's sums s1, s2
+__device__ __forceinline__ void bwd_dx_consts(const BwdParams& p, int b,
+                                              int c, float s1, float s2,
+                                              BwdChan& ch) {
+  const float r = p.stats[stat_at(p, b, c) + 1];
+  ch.k = ch.mul * ch.fs;
+  ch.c0 = r * s1 * p.inv_count;
+  ch.c1 = r * r * s2 * p.inv_count;
+}
+
+// The group sums of tot's two columns (C each) into gsum (G each), each
+// group's channels in order.
+__device__ __forceinline__ void group_sums(const float* tot, float* gsum,
+                                           int C, int G) {
+  const int gw = C / G;
+  for (int g = threadIdx.x; g < G; g += blockDim.x) {
+    float s1 = 0.f, s2 = 0.f;
+    for (int k = 0; k < gw; ++k) {
+      s1 += tot[g * gw + k];
+      s2 += tot[C + g * gw + k];
+    }
+    gsum[g] = s1;
+    gsum[G + g] = s2;
+  }
+}
+
+// One cluster of K blocks per sample: sums, the cluster's totals through
+// distributed shared memory, dx. Shared memory: the fold (2 S), the
+// channel totals (2 C) and the group sums (2 G) in floats, within the
+// forward's cluster_fixed_bytes.
+template <typename T, int VEC, bool FILM>
+__global__ void __launch_bounds__(kClusterThreads, 2)
+    gn_bwd_cluster(BwdParams p, int iters) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int K = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int b = blockIdx.x / K;
+  const int S = blockDim.x * VEC, C = p.C, G = p.G, gw = C / G;
+  const long long n = p.hw * C;
+  float* red = reinterpret_cast<float*>(smem);
+  float* tot = red + 2 * S;
+  float* gsum = tot + 2 * C;
+  const T* xb = static_cast<const T*>(p.x) + b * n;
+  const float* gb = p.g + b * n;
+  T* db = static_cast<T*>(p.dx) + b * n;
+  const long long base = (long long)rank * iters * S + threadIdx.x * VEC;
+  const int slot = threadIdx.x * VEC;
+  BwdChan ch[VEC];
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) ch[j] = load_bwd_chan(p, b, (slot + j) % C);
+  float sa[VEC], sb[VEC];
+  bwd_sums<T, VEC, FILM>(xb, gb, ch, base, n, S, iters, sa, sb);
+  fold_columns<VEC>(red, sa, sb, C);
+  cluster_arrive();
+  cluster_wait();
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    float a = 0.f, bs = 0.f;
+    for (int k = 0; k < K; ++k) {
+      const float* r = cluster.map_shared_rank(red, k);
+      a += r[c];
+      bs += r[S + c];
+    }
+    bwd_channel(p, b, c, rank == 0, a, bs);
+    tot[c] = a;
+    tot[C + c] = bs;
+  }
+  cluster_arrive();        // done reading the other blocks' shared memory
+  __syncthreads();
+  group_sums(tot, gsum, C, G);
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    const int c = (slot + j) % C;
+    bwd_dx_consts(p, b, c, gsum[c / gw], gsum[G + c / gw], ch[j]);
+  }
+  bwd_dx<T, VEC, FILM>(xb, gb, db, ch, base, n, S, iters);
+  cluster_wait();          // no block leaves while another reads its partials
+}
+
+// grid (tiles, B): per-(sample, tile, channel) partial sums of g_v and
+// g_v * d
+template <typename T, int VEC, bool FILM>
+__global__ void gn_bwd_reduce(BwdParams p, float* __restrict__ pa,
+                              float* __restrict__ pb, int iters) {
+  extern __shared__ float red[];
+  const int S = blockDim.x * VEC, C = p.C;
+  const int b = blockIdx.y, tile = blockIdx.x, tiles = gridDim.x;
+  const long long n = p.hw * C;
+  const T* xb = static_cast<const T*>(p.x) + (long long)b * n;
+  const float* gb = p.g + (long long)b * n;
+  const long long base = (long long)tile * iters * S + threadIdx.x * VEC;
+  BwdChan ch[VEC];
+#pragma unroll
+  for (int j = 0; j < VEC; ++j)
+    ch[j] = load_bwd_chan(p, b, (threadIdx.x * VEC + j) % C);
+  float sa[VEC], sb[VEC];
+  bwd_sums<T, VEC, FILM>(xb, gb, ch, base, n, S, iters, sa, sb);
+  fold_columns<VEC>(red, sa, sb, C);
+  float* oa = pa + ((long long)b * tiles + tile) * C;
+  float* ob = pb + ((long long)b * tiles + tile) * C;
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    oa[c] = red[c];
+    ob[c] = red[S + c];
+  }
+}
+
+// grid (B): the partials summed over tiles (P = blockDim / C threads per
+// channel, each over every P-th tile, then the P slices in order, as
+// gn_finalize), each channel's outputs, the group sums, and dx's constants
+// per (sample, channel)
+__global__ void gn_bwd_finalize(BwdParams p, const float* __restrict__ pa,
+                                const float* __restrict__ pb,
+                                BwdChan* __restrict__ chan, int tiles) {
+  extern __shared__ float part[];   // 2 P C slice sums, 2 C totals, 2 G
+  const int C = p.C, G = p.G, gw = C / G, b = blockIdx.x;
+  const int P = max(1, (int)blockDim.x / C);
+  float* tot = part + 2 * P * C;
+  float* gsum = tot + 2 * C;
+  for (int i = threadIdx.x; i < P * C; i += blockDim.x) {
+    const int c = i % C;
+    float a = 0.f, bs = 0.f;
+    for (int t = i / C; t < tiles; t += P) {
+      a += pa[((long long)b * tiles + t) * C + c];
+      bs += pb[((long long)b * tiles + t) * C + c];
+    }
+    part[i] = a;
+    part[P * C + i] = bs;
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    float a = 0.f, bs = 0.f;
+    for (int j = 0; j < P; ++j) {
+      a += part[j * C + c];
+      bs += part[P * C + j * C + c];
+    }
+    bwd_channel(p, b, c, true, a, bs);
+    tot[c] = a;
+    tot[C + c] = bs;
+  }
+  __syncthreads();
+  group_sums(tot, gsum, C, G);
+  __syncthreads();
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    BwdChan ch = load_bwd_chan(p, b, c);
+    bwd_dx_consts(p, b, c, gsum[c / gw], gsum[G + c / gw], ch);
+    chan[(long long)b * C + c] = ch;
+  }
+}
+
+// the same grid as gn_bwd_reduce: dx
+template <typename T, int VEC, bool FILM>
+__global__ void gn_bwd_apply(BwdParams p, const BwdChan* __restrict__ chan,
+                             int iters) {
+  const int S = blockDim.x * VEC, C = p.C;
+  const int b = blockIdx.y, tile = blockIdx.x;
+  const long long n = p.hw * C;
+  const T* xb = static_cast<const T*>(p.x) + (long long)b * n;
+  const float* gb = p.g + (long long)b * n;
+  T* db = static_cast<T*>(p.dx) + (long long)b * n;
+  const long long base = (long long)tile * iters * S + threadIdx.x * VEC;
+  BwdChan ch[VEC];
+#pragma unroll
+  for (int j = 0; j < VEC; ++j)
+    ch[j] = chan[(long long)b * C + (threadIdx.x * VEC + j) % C];
+  bwd_dx<T, VEC, FILM>(xb, gb, db, ch, base, n, S, iters);
+}
+
+// grid (ceil(C / 256)): dbeta and dgamma, each channel's per-sample terms
+// summed in sample order
+__global__ void gn_bwd_params(BwdParams p, int B) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= p.C) return;
+  float a = 0.f, bs = 0.f;
+  for (int b = 0; b < B; ++b) {
+    a += p.fsa[(long long)b * p.C + c];
+    bs += p.fsb[(long long)b * p.C + c];
+  }
+  p.dbeta[c] = a;
+  p.dgamma[c] = bs;
+}
+
+template <typename T, int VEC, bool FILM>
+cudaError_t launch_bwd(const BwdParams& p, float* work, int B, int regime,
+                       int threads, int cluster, int iters, int tiles,
+                       int smem, cudaStream_t st) {
+  const long long n = p.hw * p.C;
+  const int S = threads * VEC, C = p.C;
+  if (n % VEC || S % C || (S / C) & (S / C - 1) || S > 4096 || C > 4096)
+    return cudaErrorInvalidValue;
+  if (regime == 1) {
+    if (threads > kClusterThreads || cluster < 1 || cluster > 16 ||
+        (long long)cluster * iters * S < n ||
+        smem < (2 * S + 2 * C + 2 * p.G) * (int)sizeof(float) ||
+        smem > kMaxSmem)
+      return cudaErrorInvalidValue;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(B * cluster);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = st;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    cudaError_t err = cudaLaunchKernelEx(&cfg, gn_bwd_cluster<T, VEC, FILM>,
+                                         p, iters);
+    if (err != cudaSuccess) return err;
+  } else {
+    if (threads > 1024 || (long long)tiles * iters * S < n)
+      return cudaErrorInvalidValue;
+    // work: pa, pb (B tiles C each), then the BwdChan of every (b, c)
+    float* pa = work + 2LL * B * C;
+    float* pb = pa + (long long)B * tiles * C;
+    BwdChan* chan = reinterpret_cast<BwdChan*>(pb + (long long)B * tiles * C);
+    const dim3 grid(tiles, B);
+    gn_bwd_reduce<T, VEC, FILM><<<grid, threads, 2 * S * sizeof(float), st>>>(
+        p, pa, pb, iters);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    const int slices = C < 256 ? 256 / C : 1;   // as gn_bwd_finalize
+    gn_bwd_finalize<<<B, 256,
+                      (2 * slices * C + 2 * C + 2 * p.G) * sizeof(float),
+                      st>>>(p, pa, pb, chan, tiles);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    gn_bwd_apply<T, VEC, FILM><<<grid, threads, 0, st>>>(p, chan, iters);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  gn_bwd_params<<<(C + 255) / 256, 256, 0, st>>>(p, B);
+  return cudaGetLastError();
+}
+
+template <typename T, int VEC, bool FILM>
+cudaError_t set_bwd_cluster_attributes() {
+  return cudaFuncSetAttribute(gn_bwd_cluster<T, VEC, FILM>,
                               cudaFuncAttributeNonPortableClusterSizeAllowed,
                               1);
 }
@@ -725,15 +1216,40 @@ cudaError_t set_cluster_attributes() {
   X(float, 1, __nv_bfloat16, 0, 4)                                        \
   X(float, 1, __nv_bfloat16, 0, 1)
 
+// Every (x dtype, VEC) of the backward: 16 bytes of g, or scalars.
+#define SUPERDIFF_GN_BWD_CASES(X)                                         \
+  X(__nv_bfloat16, 0, 4)                                                  \
+  X(__nv_bfloat16, 0, 1)                                                  \
+  X(float, 1, 4)                                                          \
+  X(float, 1, 1)
+
 // Once per device, before the first launch: lets every cluster kernel use
 // up to 227 KB of dynamic shared memory and clusters of 16 blocks, and
 // fills the bfloat16 SiLU table.
 extern "C" int superdiff_gn_init() {
 #define SUPERDIFF_INIT(T, DT, TN, DN, V)                                  \
-  if (cudaError_t e = set_cluster_attributes<T, TN, V>(); e != cudaSuccess) \
+  if (cudaError_t e = set_cluster_attributes<T, TN, V, Params>();         \
+      e != cudaSuccess)                                                   \
+    return (int)e;                                                        \
+  if (cudaError_t e = set_stats_cluster_attributes<T, TN, V>();           \
+      e != cudaSuccess)                                                   \
     return (int)e;
   SUPERDIFF_GN_CASES(SUPERDIFF_INIT)
 #undef SUPERDIFF_INIT
+#define SUPERDIFF_BWD_INIT(T, DT, V)                                      \
+  if (cudaError_t e = set_bwd_cluster_attributes<T, V, true>();           \
+      e != cudaSuccess)                                                   \
+    return (int)e;                                                        \
+  if (cudaError_t e = set_bwd_cluster_attributes<T, V, false>();          \
+      e != cudaSuccess)                                                   \
+    return (int)e;
+  SUPERDIFF_GN_BWD_CASES(SUPERDIFF_BWD_INIT)
+#undef SUPERDIFF_BWD_INIT
+  if (cudaError_t e = cudaFuncSetAttribute(
+          gn_bwd_finalize, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          kMaxSmem);
+      e != cudaSuccess)
+    return (int)e;
   // the SiLU table, on a stream of its own (the caller's may be capturing)
   cudaStream_t st;
   cudaError_t e = cudaStreamCreateWithFlags(&st, cudaStreamNonBlocking);
@@ -749,6 +1265,8 @@ extern "C" int superdiff_gn_init() {
 // gamma, beta: (C,) float32; scale, shift: float32 with row stride film_ld
 // (FiLM of sample b, channel c at [b * film_ld + c]), or both null.
 // policy: 1 the CondUNet's rounding sequence, 0 the folded float32 chain.
+// stats: null, or (policy mode, float32 y) (B, G, 2) float32 for each
+// group's mean and rsqrt(var + eps), for the backward.
 // regime: 0 three passes (work: float32 scratch of 2*B*tiles*C + 5*B*C;
 // vec, threads, iters, tiles), 1 cluster (work unused; vec, threads,
 // cluster, iters, resident, smem). The geometry is chosen by the Python
@@ -756,28 +1274,37 @@ extern "C" int superdiff_gn_init() {
 extern "C" int superdiff_gn_silu(const void* x, void* y, const float* gamma,
                                  const float* beta, const float* scale,
                                  const float* shift, long long film_ld,
-                                 float* work, int B, long long hw, int C,
-                                 int G, int in_dtype, int out_dtype,
+                                 float* work, float* stats, int B,
+                                 long long hw, int C, int G, int in_dtype,
+                                 int out_dtype,
                                  int policy, int regime, int vec, int threads,
                                  int cluster, int iters, int resident,
                                  int tiles, int smem, float eps,
                                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (G <= 0 || C % G || (scale == nullptr) != (shift == nullptr) ||
-      (policy == 0 && in_dtype != out_dtype))
+      (policy == 0 && in_dtype != out_dtype) ||
+      (stats != nullptr && policy == 0))
     return (int)cudaErrorInvalidValue;
   Params p{x, y, gamma, beta, scale, shift, film_ld, hw, C, G, policy,
            1.f / (float)(hw * (C / G)), eps};
+#define SUPERDIFF_STATS(T, DT, TN, DN, V)                                  \
+  if (stats != nullptr && in_dtype == DT && out_dtype == DN && vec == V)   \
+    return (int)launch_stats<T, TN, V>(ParamsStats{p, stats}, work, B,     \
+                                       regime, threads, cluster, iters,    \
+                                       resident, tiles, smem, st);
 #define SUPERDIFF_CLUSTER(T, DT, TN, DN, V)                                \
   if (regime == 1 && in_dtype == DT && out_dtype == DN && vec == V)        \
-    return (int)launch_cluster<T, TN, V>(p, B, threads, cluster, iters,    \
-                                         resident, smem, st);
+    return (int)launch_cluster<T, TN, V, Params>(p, B, threads, cluster,   \
+                                                 iters, resident, smem, st);
 #define SUPERDIFF_THREE_PASS(T, DT, TN, DN, V)                             \
   if (regime == 0 && in_dtype == DT && out_dtype == DN && vec == V)        \
-    return (int)launch_three_pass<T, TN, V>(p, work, B, threads, iters,    \
-                                            tiles, st);
+    return (int)launch_three_pass<T, TN, V, Params>(p, work, B, threads,   \
+                                                    iters, tiles, st);
+  SUPERDIFF_GN_CASES(SUPERDIFF_STATS)
   SUPERDIFF_GN_CASES(SUPERDIFF_CLUSTER)
   SUPERDIFF_GN_CASES(SUPERDIFF_THREE_PASS)
+#undef SUPERDIFF_STATS
 #undef SUPERDIFF_CLUSTER
 #undef SUPERDIFF_THREE_PASS
   return (int)cudaErrorInvalidValue;
@@ -810,9 +1337,47 @@ extern "C" int superdiff_gn_max_clusters(int in_dtype, int out_dtype,
   cfg.numAttrs = 1;
 #define SUPERDIFF_OCC(T, DT, TN, DN, V)                                   \
   if (in_dtype == DT && out_dtype == DN && vec == V)                      \
-    return (int)cudaOccupancyMaxActiveClusters(out, gn_cluster<T, TN, V>, \
-                                               &cfg);
+    return (int)cudaOccupancyMaxActiveClusters(                           \
+        out, gn_cluster<T, TN, V, Params>, &cfg);
   SUPERDIFF_GN_CASES(SUPERDIFF_OCC)
 #undef SUPERDIFF_OCC
+  return (int)cudaErrorInvalidValue;
+}
+
+// The backward of the policy chain with a float32 norm dtype (see the
+// backward's notes above). x: (B, H*W, C) contiguous in in_dtype; g: dL/dy,
+// float32, contiguous, the same shape; dx: x's shape and dtype; stats: the
+// forward's (B, G, 2). gamma, beta: (C,) float32; scale, shift as the
+// forward's, or both null. dgamma, dbeta: (C,); dscale, dshift: (B, C)
+// contiguous (unused without FiLM); all float32. regime: 0 three passes
+// (work: float32 scratch of 2*B*C + 2*B*tiles*C + 8*B*C; vec, threads,
+// iters, tiles), 1 cluster (work: 2*B*C; vec, threads, cluster, iters,
+// smem). The geometry is chosen by the Python wrapper
+// (ops/fused_norm.py::backward_geometry). Returns a CUDA error code.
+extern "C" int superdiff_gn_silu_bwd(
+    const void* x, const float* g, void* dx, const float* stats,
+    const float* gamma, const float* beta, const float* scale,
+    const float* shift, long long film_ld, float* dgamma, float* dbeta,
+    float* dscale, float* dshift, float* work, int B, long long hw, int C,
+    int G, int in_dtype, int regime, int vec, int threads, int cluster,
+    int iters, int tiles, int smem, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (G <= 0 || C % G || (scale == nullptr) != (shift == nullptr) ||
+      (scale != nullptr && (dscale == nullptr || dshift == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  BwdParams p{x, g, dx, stats, gamma, beta, scale, shift, film_ld, hw, C, G,
+              1.f / (float)(hw * (C / G)), dscale, dshift, work,
+              work + (long long)B * C, dgamma, dbeta};
+#define SUPERDIFF_BWD(T, DT, V)                                           \
+  if (in_dtype == DT && vec == V)                                         \
+    return (int)(scale != nullptr                                         \
+                     ? launch_bwd<T, V, true>(p, work, B, regime, threads, \
+                                              cluster, iters, tiles, smem, \
+                                              st)                         \
+                     : launch_bwd<T, V, false>(p, work, B, regime,        \
+                                               threads, cluster, iters,   \
+                                               tiles, smem, st));
+  SUPERDIFF_GN_BWD_CASES(SUPERDIFF_BWD)
+#undef SUPERDIFF_BWD
   return (int)cudaErrorInvalidValue;
 }

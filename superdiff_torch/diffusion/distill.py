@@ -12,8 +12,9 @@ steps.
 One step is: the teacher's two-step rollout under ``torch.no_grad()`` (no
 input requires grad, so its GroupNorm->FiLM->SiLU chains run through kernel
 B4 and its attention through B1 on the card), the target solve, the
-student's forward and backward under autograd (its chains on the plain
-chain, its attention through B1/B2/B3), Adam and the EMA update, in place
+student's forward and backward under autograd (its chains through B4's
+forward and backward kernels at a float32 norm dtype, else the plain
+chain; its attention through B1/B2/B3), Adam and the EMA update, in place
 on the state. Per-example transitions are gathered from device tables, so
 every batch element trains its own transition.
 

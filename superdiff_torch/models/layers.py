@@ -13,7 +13,8 @@ float32 (variance ``E[x^2] - E[x]^2`` clipped at 0, eps 1e-5) and returns
 ``norm_dtype``; FiLM is applied in ``norm_dtype``. The ResBlock's and the
 CondUNet's GroupNorm -> (FiLM) -> SiLU chains go through
 ``GroupNorm.film_silu`` (kernel B4 on the card when no gradient is wanted,
-with the same rounding points). ``GroupNormSiLU`` and ``NormAct`` compute
+with the same rounding points; with a gradient at a float32 ``norm_dtype``,
+B4 and its backward kernel). ``GroupNormSiLU`` and ``NormAct`` compute
 GroupNorm -> FiLM -> SiLU as one function in float32 (``GroupNormSiLU``:
 kernel B4 on the card).
 """
@@ -113,7 +114,8 @@ class GroupNorm(nn.Module):
         """This norm, then ``h * (1 + scale) + shift`` and SiLU, all in
         ``norm_dtype``:
         :func:`~superdiff_torch.ops.fused_norm.gn_film_silu_policy` (kernel
-        B4 on the card when no gradient is wanted)."""
+        B4 on the card when no gradient is wanted; B4 and its backward
+        kernel when one is, at a float32 ``norm_dtype``)."""
         from superdiff_torch.ops.fused_norm import gn_film_silu_policy
 
         return gn_film_silu_policy(x, self.weight, self.bias,

@@ -16,9 +16,14 @@ one of two numerics modes, each with its own plain version:
   ``norm_1`` + FiLM and its ``out_norm``): the chain as the CondUNet's
   eager ops compute it under its ``norm_dtype``, with the same rounding
   points (:func:`gn_film_silu_policy_plain`). The kernel runs when no
-  gradient is wanted (sampling, serving, validation); with a gradient
-  wanted the plain chain runs under autograd, as it did before the model
-  called B4 (the TPU kernel has no backward kernel).
+  gradient is wanted (sampling, serving, validation). With a gradient
+  wanted under the training policy (a CUDA tensor, float32 ``norm_dtype``)
+  the forward is the kernel, writing each group's statistics, and the
+  backward is B4's own backward kernel (:class:`PolicyChainFn`; its closed
+  form in plain PyTorch is :func:`gn_film_silu_policy_backward_plain`; the
+  TPU package differentiates its chain with XLA autodiff). Otherwise (the
+  CPU, a bfloat16 ``norm_dtype``, ``vmap``) the plain chain runs under
+  autograd.
 
 Contract: ``x (B, H, W, C)`` NHWC, float32 or bfloat16 (contiguous on the
 card); ``gamma``, ``beta`` ``(C,)``; ``scale``, ``shift`` ``(B, C)`` or
@@ -34,7 +39,9 @@ for batches of x above 32 MB). ``launches`` counts B4
 calls (one per call, whatever the regime), ``launches_by_shape`` by ``(H,
 W, C, G, film, x's dtype name)``, and ``captured_by_shape`` those of them
 recorded into a CUDA graph (made under stream capture), which the graph's
-replays launch again unseen here. Under ``torch.func.vmap`` (stacked
+replays launch again unseen here; ``bwd_launches``,
+``bwd_launches_by_shape`` and ``bwd_captured_by_shape`` count the backward
+calls the same way. Under ``torch.func.vmap`` (stacked
 models) the policy mode goes through the registered op
 ``superdiff::gn_film_silu``, whose vmap rule launches B4 once per mapped
 model.
@@ -49,6 +56,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from superdiff_torch.ops import _build
 
@@ -62,17 +70,30 @@ _CLUSTER_THREADS = 256         # threads of a block, at most
 # batches above this take the three-pass regime: the cluster regime's
 # second read of x then misses L2 (measured: PERF.md)
 _CLUSTER_MAX_BATCH_BYTES = 32 << 20
+# the backward's, of x and g: above it three passes measured faster, at
+# 128^2 (PERF.md)
+_BWD_CLUSTER_MAX_BATCH_BYTES = 64 << 20
 
 launches = 0                   # kernel launches since the last reset
 launches_by_shape = {}         # (H, W, C, G, film, dtype name) -> launches
 captured_by_shape = {}         # the same, of launches made under capture
+bwd_launches = 0               # backward calls, keyed as the forward's
+bwd_launches_by_shape = {}
+bwd_captured_by_shape = {}
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
-    launches_by_shape.clear()
-    captured_by_shape.clear()
+    global launches, bwd_launches
+    launches = bwd_launches = 0
+    for counts in (launches_by_shape, captured_by_shape,
+                   bwd_launches_by_shape, bwd_captured_by_shape):
+        counts.clear()
+
+
+def _count(key, by_shape, captured):
+    by_shape[key] = by_shape.get(key, 0) + 1
+    if torch.cuda.is_current_stream_capturing():
+        captured[key] = captured.get(key, 0) + 1
 
 
 def _geometry(B: int, hw: int, C: int, elem_size: int, aligned: bool):
@@ -202,6 +223,43 @@ def _cluster_geometry(B, n, C, G, elem, aligned, cluster=None,
                     fixed + resident * step * elem)
 
 
+@functools.lru_cache(maxsize=1024)
+def backward_geometry(B: int, hw: int, C: int, G: int, in_dtype: torch.dtype,
+                      aligned: bool, regime: Optional[str] = None) -> Geometry:
+    """The backward kernel's regime and geometry for ``x`` in ``in_dtype``
+    (``aligned``: x, g and dx 16-byte aligned). As the forward's, with 16
+    bytes of float32 g per load (``vec`` 4, or 1): ``None`` picks the
+    cluster regime where the batch's x and g take at most
+    ``_BWD_CLUSTER_MAX_BATCH_BYTES`` (blocks per sample by the sample's x
+    and g bytes, nothing resident in shared memory), else the three-pass
+    one."""
+    if in_dtype not in _DTYPE_CODE:
+        raise ValueError(f"group norm kernel takes bfloat16/float32, got "
+                         f"{in_dtype}")
+    if G <= 0 or C % G:
+        raise ValueError(f"C={C} not divisible by num_groups={G}")
+    elem = _ELEM_SIZE[in_dtype] + 4            # x and g
+    if regime is None:
+        regime = "three_pass"
+        if B * hw * C * elem <= _BWD_CLUSTER_MAX_BATCH_BYTES:
+            try:
+                return backward_geometry(B, hw, C, G, in_dtype, aligned,
+                                         "cluster")
+            except ValueError:       # channels beyond a cluster block step
+                pass
+    if regime == "three_pass":
+        vec, threads, iters, tiles = _geometry(B, hw, C, 4, aligned)
+        return Geometry(regime, vec, threads, 1, iters, 0, tiles, 0)
+    if regime != "cluster":
+        raise ValueError(f"unknown group norm regime {regime!r}")
+    sample = hw * C * elem
+    geo = _cluster_geometry(
+        B, hw * C, C, G, 4, aligned,
+        4 if sample <= 512 << 10 else 8 if sample <= 2 << 20 else 16)
+    step = geo.threads * geo.vec
+    return geo._replace(resident=0, smem=_cluster_fixed_bytes(step, C, G))
+
+
 def _validate(x, gamma, beta, num_groups, scale, shift):
     if x.ndim != 4:
         raise ValueError(f"x must be (B, H, W, C), got {tuple(x.shape)}")
@@ -275,6 +333,53 @@ def gn_film_silu_policy_plain(x, gamma, beta, num_groups: int, norm_dtype,
     return F.silu(h)
 
 
+def gn_film_silu_policy_backward_plain(x, g, gamma, beta, num_groups: int,
+                                       scale=None, shift=None,
+                                       eps: float = 1e-5):
+    """The backward of :func:`gn_film_silu_policy_plain` at a float32
+    ``norm_dtype`` in closed form, plain PyTorch (what B4's backward kernel
+    computes): with ``d = x - mean``, ``r = rsqrt(var + eps)`` per (sample,
+    group), ``v = (d r gamma + beta)(1 + s) + t`` and ``g_v = g silu'(v)``,
+    per (sample, channel) ``A = sum g_v`` and ``B = r sum g_v d`` over the
+    positions; ``dt = A``, ``ds = gamma B + beta A``, ``dbeta = sum_b (1 +
+    s) A``, ``dgamma = sum_b (1 + s) B``; ``dx = r (gamma (1 + s) g_v - S1 /
+    N - d r S2 / N)`` with ``S1``, ``S2`` the sums of ``gamma (1 + s) A``
+    and ``gamma (1 + s) B`` over the group's channels, ``N`` its element
+    count. Returns ``(dx, dgamma, dbeta, dscale, dshift)``, ``dx`` in
+    ``x``'s dtype, the FiLM pair ``None`` without FiLM. (A variance held at
+    0 by the clamp is differentiated as if unclamped.)"""
+    B, H, W, C = x.shape
+    G, gw = num_groups, C // num_groups
+    xg = x.float().reshape(B, H * W, G, gw)
+    mean = xg.mean(dim=(1, 3), keepdim=True)
+    var = torch.clamp((xg * xg).mean(dim=(1, 3), keepdim=True)
+                      - mean * mean, min=0.0)
+    r = torch.rsqrt(var + eps)                                 # (B,1,G,1)
+    d = xg - mean
+    gam = gamma.float().view(1, 1, G, gw)
+    bet = beta.float().view(1, 1, G, gw)
+    v = d * (r * gam) + bet
+    fs = torch.ones((1, 1, G, gw), device=x.device)
+    if scale is not None:
+        fs = 1.0 + scale.float().reshape(B, 1, G, gw)
+        v = v * fs + shift.float().reshape(B, 1, G, gw)
+    sig = torch.sigmoid(v)
+    gv = g.float().reshape(B, H * W, G, gw) * (sig * (1.0 + v * (1.0 - sig)))
+    A = gv.sum(dim=1, keepdim=True)                            # (B,1,G,gw)
+    Bc = r * (gv * d).sum(dim=1, keepdim=True)
+    s1 = (gam * fs * A).sum(dim=3, keepdim=True)               # (B,1,G,1)
+    s2 = (gam * fs * Bc).sum(dim=3, keepdim=True)
+    n = H * W * gw
+    dx = r * (gam * fs * gv - s1 / n - d * r * s2 / n)
+    dgamma = (fs * Bc).sum(dim=0).reshape(C)
+    dbeta = (fs * A).sum(dim=0).reshape(C)
+    dscale = dshift = None
+    if scale is not None:
+        dscale = (gam * Bc + bet * A).reshape(B, C)
+        dshift = A.reshape(B, C)
+    return dx.reshape(x.shape).to(x.dtype), dgamma, dbeta, dscale, dshift
+
+
 _ready = set()                 # (device, defines) whose kernels are set up
 _DEFINES = ()                  # macros of the build the wrapper launches
 
@@ -286,9 +391,12 @@ def _load(defines=None):
     defines = _DEFINES if defines is None else tuple(defines)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     argtypes = {
-        "superdiff_gn_silu": ([ptr] * 6 + [ctypes.c_longlong, ptr, i32,
+        "superdiff_gn_silu": ([ptr] * 6 + [ctypes.c_longlong, ptr, ptr, i32,
                                            ctypes.c_longlong] + [i32] * 13
                               + [ctypes.c_float, ptr]),
+        "superdiff_gn_silu_bwd": ([ptr] * 8 + [ctypes.c_longlong]
+                                  + [ptr] * 5 + [i32, ctypes.c_longlong]
+                                  + [i32] * 10 + [ptr]),
         "superdiff_gn_init": [],
         "superdiff_gn_max_clusters": [i32] * 6 + [ptr]}
     if "SUPERDIFF_GN_TRACE" in defines:
@@ -333,11 +441,13 @@ def _film(scale, shift):
 
 
 def _launch(x, gamma, beta, num_groups, scale, shift, eps, out_dtype,
-            policy, regime=None, geo=None):
+            policy, regime=None, geo=None, stats=False):
     """One B4 call on the card: ``policy`` the CondUNet's rounding
     sequence, else the folded float32 chain; ``regime`` ``None`` as
     :func:`launch_geometry` picks (a name forces one, to time both;
-    ``geo`` gives the whole geometry, for sweeps)."""
+    ``geo`` gives the whole geometry, for sweeps). ``stats`` (policy mode,
+    float32 ``out_dtype``): also return each (sample, group)'s mean and
+    ``rsqrt(var + eps)``, ``(B, G, 2)`` float32, for the backward."""
     B, H, W, C = x.shape
     if x.dtype not in _DTYPE_CODE:
         raise ValueError(f"group norm kernel takes bfloat16/float32, got "
@@ -355,11 +465,14 @@ def _launch(x, gamma, beta, num_groups, scale, shift, eps, out_dtype,
     if geo.regime == "three_pass":
         work = torch.empty(2 * B * C * geo.tiles + 5 * B * C,
                            dtype=torch.float32, device=x.device)
+    st = (torch.empty((B, num_groups, 2), dtype=torch.float32,
+                      device=x.device) if stats else None)
     opt = lambda a: None if a is None else a.data_ptr()
     with torch.cuda.device(x.device):
         err = _load().superdiff_gn_silu(
             x.data_ptr(), y.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-            opt(scale), opt(shift), film_ld, opt(work), B, H * W, C,
+            opt(scale), opt(shift), film_ld, opt(work), opt(st), B, H * W,
+            C,
             num_groups, _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype],
             int(policy), int(geo.regime == "cluster"), geo.vec, geo.threads,
             geo.cluster, geo.iters, geo.resident, geo.tiles, geo.smem, eps,
@@ -370,12 +483,63 @@ def _launch(x, gamma, beta, num_groups, scale, shift, eps, out_dtype,
                            f"{x.dtype} -> {out_dtype}, {geo})")
     global launches
     launches += 1
-    key = (H, W, C, num_groups, scale is not None,
-           str(x.dtype).replace("torch.", ""))
-    launches_by_shape[key] = launches_by_shape.get(key, 0) + 1
-    if torch.cuda.is_current_stream_capturing():
-        captured_by_shape[key] = captured_by_shape.get(key, 0) + 1
-    return y
+    _count((H, W, C, num_groups, scale is not None,
+            str(x.dtype).replace("torch.", "")), launches_by_shape,
+           captured_by_shape)
+    return (y, st) if stats else y
+
+
+def _launch_backward(x, g, stats, gamma, beta, num_groups, scale, shift,
+                     regime=None, geo=None):
+    """One call of B4's backward on the card (policy mode, float32 norm
+    dtype): ``x`` the forward's contiguous input, ``g`` dL/dy, ``stats`` the
+    forward's. ``regime`` / ``geo`` as :func:`_launch`'s. Returns ``(dx,
+    dgamma, dbeta, dscale, dshift)``, ``dx`` in ``x``'s dtype, the rest
+    float32 (the FiLM pair ``None`` without FiLM)."""
+    B, H, W, C = x.shape
+    if x.dtype not in _DTYPE_CODE:
+        raise ValueError(f"group norm kernel takes bfloat16/float32, got "
+                         f"{x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("group norm kernel needs a contiguous NHWC x")
+    g = g.float().contiguous()
+    dx = torch.empty_like(x)
+    if geo is None:
+        geo = backward_geometry(
+            B, H * W, C, num_groups, x.dtype,
+            all(a.data_ptr() % 16 == 0 for a in (x, g, dx)), regime)
+    gamma, beta = _f32(gamma), _f32(beta)
+    scale, shift, film_ld = _film(scale, shift)
+    dgamma = torch.empty(C, dtype=torch.float32, device=x.device)
+    dbeta = torch.empty_like(dgamma)
+    dscale = dshift = None
+    if scale is not None:
+        dscale = torch.empty((B, C), dtype=torch.float32, device=x.device)
+        dshift = torch.empty_like(dscale)
+    words = 2 * B * C
+    if geo.regime == "three_pass":
+        words += 2 * B * C * geo.tiles + 8 * B * C
+    work = torch.empty(words, dtype=torch.float32, device=x.device)
+    opt = lambda a: None if a is None else a.data_ptr()
+    with torch.cuda.device(x.device):
+        err = _load().superdiff_gn_silu_bwd(
+            x.data_ptr(), g.data_ptr(), dx.data_ptr(), stats.data_ptr(),
+            gamma.data_ptr(), beta.data_ptr(), opt(scale), opt(shift),
+            film_ld, dgamma.data_ptr(), dbeta.data_ptr(), opt(dscale),
+            opt(dshift), work.data_ptr(), B, H * W, C, num_groups,
+            _DTYPE_CODE[x.dtype], int(geo.regime == "cluster"), geo.vec,
+            geo.threads, geo.cluster, geo.iters, geo.tiles, geo.smem,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"group_norm_silu backward failed: CUDA error "
+                           f"{err} (shape {tuple(x.shape)}, G={num_groups}, "
+                           f"{x.dtype}, {geo})")
+    global bwd_launches
+    bwd_launches += 1
+    _count((H, W, C, num_groups, scale is not None,
+            str(x.dtype).replace("torch.", "")), bwd_launches_by_shape,
+           bwd_captured_by_shape)
+    return dx, dgamma, dbeta, dscale, dshift
 
 
 def _gn_silu_cuda(x, gamma, beta, num_groups, scale, shift, eps):
@@ -416,6 +580,33 @@ class GroupNormSiLUFn(torch.autograd.Function):
                   for a in leaves), None, None)
 
 
+class PolicyChainFn(torch.autograd.Function):
+    """The policy chain at a float32 ``norm_dtype`` on the card: B4's
+    forward, which also writes each group's statistics, and B4's backward
+    kernel. Saves ``x``, the small vectors and the statistics, none of the
+    chain's float32 intermediates."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, scale, shift, num_groups, eps):
+        x = x.contiguous()
+        y, stats = _launch(x, gamma, beta, num_groups, scale, shift, eps,
+                           torch.float32, policy=True, stats=True)
+        ctx.save_for_backward(x, gamma, beta, scale, shift, stats)
+        ctx.num_groups = num_groups
+        return y
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, gamma, beta, scale, shift, stats = ctx.saved_tensors
+        grads = _launch_backward(x, g, stats, gamma, beta, ctx.num_groups,
+                                 scale, shift)
+        return (*(None if gr is None or not need else gr.to(a.dtype)
+                  for gr, need, a in zip(grads, ctx.needs_input_grad,
+                                         (x, gamma, beta, scale, shift))),
+                None, None)
+
+
 def fused_groupnorm_silu(x: torch.Tensor,
                          gamma: torch.Tensor,
                          beta: torch.Tensor,
@@ -446,17 +637,23 @@ def gn_film_silu_policy(x: torch.Tensor,
     """The CondUNet's GroupNorm -> (FiLM) -> SiLU in ``norm_dtype``, with
     :func:`gn_film_silu_policy_plain`'s rounding points: B4 on a CUDA tensor
     when no gradient is wanted (grad mode off, or no input that requires
-    grad); otherwise, and on the CPU, the plain chain (under autograd when
-    a gradient is wanted)."""
+    grad); with a gradient wanted, B4 and its backward kernel
+    (:class:`PolicyChainFn`) on a CUDA tensor at a float32 ``norm_dtype``,
+    otherwise (the CPU, bfloat16, ``vmap``) the plain chain under autograd.
+    On the CPU without a gradient, the plain chain."""
     _validate(x, gamma, beta, num_groups, scale, shift)
+    args = (x, gamma, beta, scale, shift)
     wants_grad = torch.is_grad_enabled() and any(
-        a is not None and a.requires_grad
-        for a in (x, gamma, beta, scale, shift))
+        a is not None and a.requires_grad for a in args)
+    batched = any(a is not None and torch._C._functorch.is_batchedtensor(a)
+                  for a in args)
     if wants_grad:
+        if x.is_cuda and norm_dtype == torch.float32 and not batched:
+            return PolicyChainFn.apply(x, gamma, beta, scale, shift,
+                                       num_groups, eps)
         return gn_film_silu_policy_plain(x, gamma, beta, num_groups,
                                          norm_dtype, scale, shift, eps)
-    if any(a is not None and torch._C._functorch.is_batchedtensor(a)
-           for a in (x, gamma, beta, scale, shift)):
+    if batched:
         return torch.ops.superdiff.gn_film_silu(x, gamma, beta, scale, shift,
                                                 num_groups, norm_dtype, eps)
     return _gn_film_silu_policy_impl(x, gamma, beta, scale, shift,

@@ -16,8 +16,12 @@ yardstick (``F.group_norm`` + FiLM + ``F.silu``; no single torch call
 computes the chain), the bound (x read once, y written once at 3.35 TB/s)
 and the launch geometry with the clusters the card holds at once. A
 summary line sums launches x time over the call. ``--ref`` adds the
-RefUNet's three float32 shapes (folded chain, ``gn_silu_plain``). It also
-prints ptxas's report of the build. About a minute on an H100.
+RefUNet's three float32 shapes (folded chain, ``gn_silu_plain``).
+``--train`` prints instead, per shape, the training chain (float32 norm
+dtype, a gradient wanted): B4's forward and backward kernels against the
+plain chain under autograd and the library's ``F.group_norm`` + FiLM +
+``F.silu`` under autograd (``train_chain_row``). It also prints ptxas's
+report of the build. About a minute on an H100.
 """
 
 import argparse
@@ -206,6 +210,113 @@ def chain_row(fn, batch, key, count, norm_dtype, regimes, policy=True,
     return row
 
 
+# the backward kernel against the plain closed form: dx within 2^-7 of
+# itself plus 1e-3 of the largest |dx| (a bf16 rounding lands an ulp away;
+# dx's three terms cancel), the float32 sums within 1e-4 of their largest
+TRAIN_TOL = {"dx": (2 ** -7, 1e-3), "sums": (0.0, 1e-4)}
+
+
+def train_chain_row(fn, batch, key, count):
+    """The training chain at one shape (float32 norm dtype; FiLM operands
+    as the ResBlock's ``cond.chunk(2)`` views): B4's backward in each regime
+    against ``gn_film_silu_policy_backward_plain`` (the largest error of dx
+    and of the small gradients, as a share of each one's largest value;
+    the row ``failed`` beyond ``TRAIN_TOL``); device ms of B4's forward
+    (statistics written), of its backward, of both through autograd
+    (``PolicyChainFn``), of the plain chain's forward + backward under
+    autograd and of the library's; the bytes bound of forward + backward
+    (x read and float32 y written; x and g read, dx written) at 3.35
+    TB/s."""
+    import torch
+
+    from superdiff_torch.tools.timing import kernel_device_ms
+
+    H, W, C, G, film, dname = key
+    dtype = getattr(torch, dname)
+    x, gamma, beta, scale, shift = chain_inputs(batch, H, W, C, False, dtype,
+                                                seed=C + G + H)
+    if film:
+        cond = 0.2 * torch.randn((batch, 2 * C), device="cuda")
+        scale, shift = cond.chunk(2, dim=-1)
+    g = torch.randn(x.shape, device="cuda")
+    n, e = x.numel(), x.element_size()
+    row = dict(shape=[batch, H, W, C], groups=G, film=film, dtype=dname,
+               launches_per_step=count,
+               bound_ms=n * (3 * e + 8) / HBM_BPS * 1e3, bound_by="bytes")
+    want = fn.gn_film_silu_policy_backward_plain(x, g, gamma, beta, G, scale,
+                                                 shift)
+    picked = fn.backward_geometry(batch, H * W, C, G, dtype, True).regime
+    for regime in ("cluster", "three_pass"):
+        try:
+            fn.backward_geometry(batch, H * W, C, G, dtype, True, regime)
+        except ValueError:
+            continue
+        y, stats = fn._launch(x, gamma, beta, G, scale, shift, 1e-5,
+                              torch.float32, True, regime, stats=True)
+        got = fn._launch_backward(x, g, stats, gamma, beta, G, scale, shift,
+                                  regime)
+        errs = {}
+        for name, a, b in zip(("dx", "dgamma", "dbeta", "dscale", "dshift"),
+                              got, want):
+            if a is not None:
+                big = b.float().abs().max().item()
+                rtol, atol = TRAIN_TOL["dx" if name == "dx" else "sums"]
+                over = ((a.float() - b.float()).abs()
+                        - rtol * b.float().abs()).max().item() / big
+                errs[name] = over
+                if not over <= atol:
+                    row["failed"] = True
+        again = fn._launch_backward(x, g, stats, gamma, beta, G, scale,
+                                    shift, regime)
+        if not all(a is None or torch.equal(a, b)
+                   for a, b in zip(got, again)):
+            row["failed"] = True
+        r = dict(errors_over_rtol_share_of_max=errs,
+                 fwd_device_ms=kernel_device_ms(
+                     lambda: fn._launch(x, gamma, beta, G, scale, shift, 1e-5,
+                                        torch.float32, True, regime,
+                                        stats=True), kernel=None),
+                 bwd_device_ms=kernel_device_ms(
+                     lambda: fn._launch_backward(x, g, stats, gamma, beta, G,
+                                                 scale, shift, regime),
+                     kernel=None))
+        row[regime + ("*" if regime == picked else "")] = r
+        del y, stats, got, again
+    leaves = [None if a is None else a.detach().requires_grad_()
+              for a in (x, gamma, beta, scale, shift)]
+    wanted = [a for a in leaves if a is not None]
+
+    def through(chain):
+        return lambda: torch.autograd.grad(chain(), wanted, g)
+
+    row["kernels_fwd_bwd_device_ms"] = kernel_device_ms(through(
+        lambda: fn.gn_film_silu_policy(*leaves[:3], G, torch.float32,
+                                       *leaves[3:])), kernel=None)
+    row["plain_fwd_bwd_device_ms"] = kernel_device_ms(through(
+        lambda: fn.gn_film_silu_policy_plain(*leaves[:3], G, torch.float32,
+                                             *leaves[3:])), kernel=None)
+    row["library_fwd_bwd_device_ms"] = kernel_device_ms(through(
+        lambda: gn_library(leaves[0].float(), *leaves[1:3], G,
+                           *leaves[3:]).permute(0, 2, 3, 1)), kernel=None)
+    dev = row["kernels_fwd_bwd_device_ms"]
+    row["roofline_share"] = (row["bound_ms"] / dev if isinstance(dev, float)
+                             else dev)
+    return row
+
+
+def summarize_train(rows):
+    """Sums of launches per step x device ms over the training rows."""
+    out = {}
+    for k in ("kernels_fwd_bwd_device_ms", "plain_fwd_bwd_device_ms",
+              "library_fwd_bwd_device_ms", "bound_ms"):
+        vals = [r[k] for r in rows]
+        out[k] = (sum(r["launches_per_step"] * r[k] for r in rows)
+                  if all(isinstance(v, float) for v in vals)
+                  else "not measured")
+    out["launches_per_step"] = sum(r["launches_per_step"] for r in rows)
+    return out
+
+
 def summarize(rows, regimes):
     """Sums of launches x device ms over the rows, per regime (the picked
     one as ``picked``), for the plain chain, the library and the bound."""
@@ -309,6 +420,9 @@ def main(argv=None) -> int:
                    help="only the RefUNet's shapes through the public "
                         "fused_groupnorm_silu (which older checkouts have "
                         "too), device ms: for parent-against-change runs")
+    p.add_argument("--train", action="store_true",
+                   help="the training chain's forward and backward kernels "
+                        "(float32 norm dtype) instead")
     p.add_argument("--trace", action="store_true",
                    help="also a traced cluster launch at each shape")
     p.add_argument("--sweep", action="store_true",
@@ -350,6 +464,18 @@ def main(argv=None) -> int:
     shapes = wide256_chain_shapes(fn, model, args.batch)
     del model
     print("clocks " + warm_up(), flush=True)
+    if args.train:
+        rows = []
+        for key, count in sorted(shapes.items()):
+            rows.append(train_chain_row(fn, args.batch, key, count))
+            print("gn_train_chain " + json.dumps(rows[-1]), flush=True)
+        print("gn_train_summary " + json.dumps(summarize_train(rows)),
+              flush=True)
+        failed = [r["shape"] + [r["film"]] for r in rows if r.get("failed")]
+        if failed:
+            print(f"{len(failed)} rows disagree: {json.dumps(failed)}",
+                  file=sys.stderr)
+        return 1 if failed else 0
     rows = []
     for key, count in sorted(shapes.items(), key=lambda kv: kv[0]):
         rows.append(chain_row(fn, args.batch, key, count, nd, regimes))

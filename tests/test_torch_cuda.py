@@ -376,8 +376,10 @@ def test_b4_in_a_cuda_graph_equals_the_eager_launch_on_card(cuda, regime):
 @pytest.mark.cuda
 def test_condunet_launches_b4_for_every_chain_without_grad_on_card(cuda):
     """One full-width wide256 call under no_grad launches B4 once per
-    GroupNorm->(FiLM)->SiLU chain, 51 in all (25 with FiLM), and one with
-    gradients wanted launches none (the plain chain under autograd)."""
+    GroupNorm->(FiLM)->SiLU chain, 51 in all (25 with FiLM); one with
+    gradients wanted at the bf16 norm dtype launches none (the plain chain
+    under autograd); at the float32 norm dtype (the training policy) 51
+    forward and 51 backward launches (25 of each with FiLM)."""
     from superdiff_torch.models.presets import build_model
 
     model = build_model("wide256", device=cuda).init_parameters(0)
@@ -394,7 +396,185 @@ def test_condunet_launches_b4_for_every_chain_without_grad_on_card(cuda):
     fn.reset_launches()
     model(*args).float().mean().backward()
     torch.cuda.synchronize()
-    assert fn.launches == 0
+    assert fn.launches == 0 and fn.bwd_launches == 0
+    model.set_norm_dtype(torch.float32)
+    fn.reset_launches()
+    model(*args).float().mean().backward()
+    torch.cuda.synchronize()
+    assert fn.launches == fn.bwd_launches == 51
+    for counts in (fn.launches_by_shape, fn.bwd_launches_by_shape):
+        assert sum(n for k, n in counts.items() if k[4]) == 25
+    assert fn.bwd_launches_by_shape == fn.launches_by_shape
+
+
+def _chain_leaves(x, gamma, beta, scale, shift):
+    return [None if a is None else a.detach().clone().requires_grad_()
+            for a in (x, gamma, beta, scale, shift)]
+
+
+def _assert_backward_close(got, want, what):
+    """B4's backward against the plain closed form. dx (bf16 or float32)
+    within 2^-7 of itself (a bf16 rounding of float32 values whose last bits
+    differ lands an ulp, 2^-8 relative, away) plus 1e-3 of the largest
+    |dx| (its three terms cancel, so the float32 sums' order shows at the
+    scale of the largest term); the float32 sums dgamma, dbeta, dscale,
+    dshift within 1e-4 of their largest value (sums of up to 67 M terms in
+    another order)."""
+    for name, a, b in zip(("dx", "dgamma", "dbeta", "dscale", "dshift"),
+                          got, want):
+        assert (a is None) == (b is None), (what, name)
+        if a is None:
+            continue
+        assert a.dtype == b.dtype and a.shape == b.shape, (what, name)
+        big = b.float().abs().max().item()
+        rtol, atol = (2 ** -7, 1e-3 * big) if name == "dx" else (0,
+                                                                  1e-4 * big)
+        torch.testing.assert_close(a.float(), b.float(), rtol=rtol,
+                                   atol=atol, msg=lambda m: f"{what} {name}: "
+                                   f"{m}")
+
+
+def _backward_case(x, gamma, beta, G, scale, shift, regime, seed=0):
+    """B4's forward (statistics written) and backward at ``regime``
+    against the plain closed form, on one incoming gradient; a rerun of
+    both gives the same bits. Returns the kernel's gradients."""
+    g = torch.randn(x.shape, device=x.device,
+                    generator=torch.Generator(device=x.device)
+                    .manual_seed(seed))
+    y, stats = fn._launch(x, gamma, beta, G, scale, shift, 1e-5,
+                          torch.float32, True, regime, stats=True)
+    assert torch.equal(y, fn._launch(x, gamma, beta, G, scale, shift, 1e-5,
+                                     torch.float32, True, regime))
+    got = fn._launch_backward(x, g, stats, gamma, beta, G, scale, shift,
+                              regime)
+    torch.cuda.synchronize()
+    want = fn.gn_film_silu_policy_backward_plain(x, g, gamma, beta, G, scale,
+                                                 shift)
+    _assert_backward_close(got, want, f"{tuple(x.shape)} G={G} "
+                           f"film={scale is not None} {regime}")
+    again = fn._launch_backward(x, g, fn._launch(
+        x, gamma, beta, G, scale, shift, 1e-5, torch.float32, True, regime,
+        stats=True)[1], gamma, beta, G, scale, shift, regime)
+    for a, b in zip(got, again):
+        assert (a is None and b is None) or torch.equal(a, b)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,W,C", _MAIN_PATH)
+def test_b4_backward_matches_the_plain_backward_at_every_chain_shape_on_card(
+        cuda, H, W, C):
+    """B4's backward at the wide256 chain shapes at batch 16 (bf16 x, G=32;
+    the 18 of a train step among them), with and without FiLM, in both
+    regimes, against ``gn_film_silu_policy_backward_plain``
+    (tolerances: ``_assert_backward_close``); two runs give the same
+    bits."""
+    for film in (True, False):
+        x, gamma, beta, scale, shift = _gn_inputs(16, H, W, C, film,
+                                                  torch.bfloat16, cuda,
+                                                  seed=C + H)
+        for regime in ("cluster", "three_pass"):
+            _backward_case(x, gamma, beta, 32, scale, shift, regime, seed=H)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W,C,G,dtype", [
+    (3, 7, 9, 6, 3, torch.bfloat16), (2, 7, 9, 48, 16, torch.float32),
+    (2, 5, 5, 64, 64, torch.bfloat16), (1, 16, 16, 128, 4, torch.float32),
+    (4, 8, 8, 1024, 32, torch.bfloat16)])
+def test_b4_backward_at_odd_shapes_and_strided_film_on_card(cuda, B, H, W, C,
+                                                            G, dtype):
+    """B4's backward off the main path: ragged lengths (scalar loads),
+    group widths 2, 3, 1 and 32, float32 x, 1024 channels (three passes
+    only: a cluster block step holds at most 256 x 4), and FiLM operands
+    that are tensor-parallel views (a slice of a wider row, its own row
+    stride and offset), against the plain closed form."""
+    x, gamma, beta, _, _ = _gn_inputs(B, H, W, C, False, dtype, cuda,
+                                      seed=C)
+    wide = 0.2 * torch.randn((B, 4 * C), device=cuda)
+    scale, shift = wide[:, C:2 * C], wide[:, 3 * C:]
+    regimes = ["three_pass"]
+    if C <= 1024 and fn.backward_geometry(B, H * W, C, G, dtype, True
+                                          ).regime == "cluster":
+        regimes.append("cluster")
+    for regime in regimes:
+        for film in (True, False):
+            _backward_case(x, gamma, beta, G, *((scale, shift) if film
+                                                else (None, None)), regime)
+
+
+@pytest.mark.cuda
+def test_training_chain_keeps_the_no_grad_bits_on_card(cuda):
+    """With a gradient wanted at the float32 norm dtype the chain is
+    ``PolicyChainFn``: its y is the no-grad launch's bit for bit, its
+    gradients of all five inputs (FiLM as ``cond.chunk(2)`` views) are the
+    backward kernel's, one forward and one backward launch are counted; a
+    bf16 norm dtype keeps the plain chain under autograd."""
+    x, gamma, beta, scale, shift = _gn_inputs(4, 32, 32, 128, True,
+                                              torch.bfloat16, cuda)
+    cond = torch.cat([scale, shift], dim=-1).requires_grad_()
+    leaves = _chain_leaves(x, gamma, beta, None, None)
+    s, t = cond.chunk(2, dim=-1)
+    fn.reset_launches()
+    y = fn.gn_film_silu_policy(leaves[0], leaves[1], leaves[2], 32,
+                               torch.float32, s, t)
+    assert type(y.grad_fn).__name__ == "PolicyChainFnBackward"
+    with torch.no_grad():
+        assert torch.equal(y, fn.gn_film_silu_policy(x, gamma, beta, 32,
+                                                     torch.float32, s, t))
+    g = torch.randn_like(y)
+    got = torch.autograd.grad(y, leaves[:3] + [cond], g)
+    assert (fn.launches, fn.bwd_launches) == (2, 1)
+    want = fn.gn_film_silu_policy_backward_plain(x, g, gamma, beta, 32,
+                                                 scale, shift)
+    _assert_backward_close(
+        (*got[:3], got[3][:, :128], got[3][:, 128:]), want, "autograd")
+    fn.reset_launches()
+    y = fn.gn_film_silu_policy(leaves[0], leaves[1], leaves[2], 32,
+                               torch.bfloat16, s, t)
+    torch.autograd.grad(y, leaves[:3] + [cond], g.bfloat16())
+    assert (fn.launches, fn.bwd_launches) == (0, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("regime", ["cluster", "three_pass"])
+def test_b4_backward_in_a_cuda_graph_equals_the_eager_call_on_card(cuda,
+                                                                   regime):
+    """The training chain's forward and backward (through autograd)
+    captured into a CUDA graph and replayed twice give the eager call's
+    bits; the captured launches are counted as captured."""
+    H = 32 if regime == "cluster" else 128
+    x, gamma, beta, scale, shift = _gn_inputs(16, H, H, 128, True,
+                                              torch.bfloat16, cuda)
+    leaves = _chain_leaves(x, gamma, beta, scale, shift)
+    g = torch.randn(x.shape, device=cuda)
+    assert fn.backward_geometry(16, H * H, 128, 32, torch.bfloat16,
+                                True).regime == regime
+
+    def call():             # outputs detached: no autograd graph outlives it
+        y = fn.gn_film_silu_policy(*leaves[:3], 32, torch.float32,
+                                   *leaves[3:])
+        return (y.detach(), *torch.autograd.grad(y, leaves, g))
+
+    want = call()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    fn.reset_launches()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = call()
+    assert sum(fn.captured_by_shape.values()) == 1
+    assert sum(fn.bwd_captured_by_shape.values()) == 1
+    for _ in range(2):
+        for o in outs:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for o, w in zip(outs, want):
+            assert torch.equal(o, w)
 
 
 @pytest.mark.cuda
@@ -1109,7 +1289,8 @@ def test_graphed_train_step_equals_the_eager_step_on_card(cuda):
     parameters, moments and EMA agree to 1e-5 per leaf (the eager update
     rounds its multiply-add once, the captured one reads the per-step
     numbers from a tensor); the captured step holds 8 launches each of B1,
-    B2 and B3; the peak memory stays within 2.5x the eager step's."""
+    B2 and B3 and 51 each of B4's forward and backward; the peak memory
+    stays within 2.5x the eager step's."""
     from superdiff_torch.training import steps
 
     torch.backends.cudnn.deterministic = True
@@ -1137,6 +1318,7 @@ def test_graphed_train_step_equals_the_eager_step_on_card(cuda):
 
         steps.reset_counts()
         fa.reset_launches()
+        fn.reset_launches()
         torch.cuda.reset_peak_memory_stats()
         state, step = _train_setup(cuda)
         losses = []
@@ -1154,6 +1336,8 @@ def test_graphed_train_step_equals_the_eager_step_on_card(cuda):
         for counts in (fa.captured_by_shape, fa.bwd_dq_captured_by_shape,
                        fa.bwd_dkv_captured_by_shape):
             assert sum(counts.values()) == 8
+        for counts in (fn.captured_by_shape, fn.bwd_captured_by_shape):
+            assert sum(counts.values()) == 51
         assert (fa.launches, fa.bwd_dq_launches, fa.bwd_dkv_launches) \
             == (16, 16, 16)                 # the warm-up and the capture
         gap, group, leaf = _worst_leaf_gap(_leaves(state), eager)
@@ -1168,6 +1352,50 @@ def test_graphed_train_step_equals_the_eager_step_on_card(cuda):
         kept = [v.item() for v in losses]
         state, _ = step(state, batches[0])
         assert [v.item() for v in losses] == kept
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+@pytest.mark.cuda
+def test_graphed_loss_gradients_equal_the_eager_ones_on_card(cuda):
+    """wide256's loss and parameter gradients at batch 4 under the training
+    policy (B1-B3, and B4's forward and backward at every chain), captured
+    into a CUDA graph and replayed, equal the eager call's bit for bit."""
+    from superdiff_torch.diffusion import make_schedule
+    from superdiff_torch.diffusion.process import p_losses
+    from superdiff_torch.models.presets import build_model
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        model = build_model("wide256", device=cuda).init_parameters(0)
+        params = [p for p in model.parameters()]
+        sched = make_schedule(1000, device=cuda)
+        g = torch.Generator(device=cuda).manual_seed(3)
+        x = torch.randn((4, 256, 256, 1), generator=g, device=cuda)
+        noise = torch.randn(x.shape, generator=g, device=cuda)
+        t = torch.tensor([3, 300, 600, 999], device=cuda)
+        y = torch.tensor([0, 1, 2, 1], device=cuda)
+
+        def grads():        # the loss detached: no graph outlives a call
+            loss = p_losses(sched, model, x, t, y=y, noise=noise)
+            return (loss.detach(), *torch.autograd.grad(loss, params))
+
+        want = grads()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            grads()
+        torch.cuda.current_stream().wait_stream(side)
+        fn.reset_launches()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs = grads()
+        assert sum(fn.captured_by_shape.values()) == 51
+        assert sum(fn.bwd_captured_by_shape.values()) == 51
+        graph.replay()
+        torch.cuda.synchronize()
+        for o, w in zip(outs, want):
+            assert torch.equal(o, w)
     finally:
         torch.backends.cudnn.deterministic = False
 

@@ -106,8 +106,10 @@ def test_policy_plain_matches_the_jax_resblock_chain(nd, film):
 
 def test_dispatcher_routes_cpu_to_plain_and_gradients_to_autograd():
     """A CPU tensor takes the plain chain and launches nothing; with a
-    gradient wanted the plain chain runs under autograd (its gradients are
-    autograd's of the plain chain); under no_grad no graph is built."""
+    gradient wanted (even at the float32 norm dtype, where a CUDA tensor
+    takes B4's backward kernel) the plain chain runs under autograd (its
+    gradients are autograd's of the plain chain) and neither B4's forward
+    nor its backward is counted; under no_grad no graph is built."""
     x, gamma, beta, scale, shift = map(torch.from_numpy,
                                        _inputs(2, 4, 4, 16, seed=3))
     fn.reset_launches()
@@ -116,6 +118,7 @@ def test_dispatcher_routes_cpu_to_plain_and_gradients_to_autograd():
     y = fn.gn_film_silu_policy(leaves[0], leaves[1], leaves[2], 4,
                                torch.float32, leaves[3], leaves[4])
     assert y.grad_fn is not None
+    assert "PolicyChainFn" not in type(y.grad_fn).__name__
     g = torch.randn(y.shape, generator=torch.Generator().manual_seed(0))
     got = torch.autograd.grad(y, leaves, g)
     want = torch.autograd.grad(
@@ -128,10 +131,42 @@ def test_dispatcher_routes_cpu_to_plain_and_gradients_to_autograd():
                                    torch.float32, leaves[3], leaves[4])
     assert y.grad_fn is None
     assert fn.launches == 0 and fn.launches_by_shape == {}
+    assert fn.bwd_launches == 0 and fn.bwd_launches_by_shape == {}
     with pytest.raises(ValueError, match="divisible"):
         fn.gn_film_silu_policy(x, gamma, beta, 5, torch.float32)
     with pytest.raises(ValueError, match="together"):
         fn.gn_film_silu_policy(x, gamma, beta, 4, torch.float32, scale)
+
+
+@pytest.mark.parametrize("film", [True, False])
+@pytest.mark.parametrize("C,G", [(16, 16), (16, 4), (32, 2)])
+def test_policy_backward_plain_matches_autograd_of_the_plain_chain(C, G,
+                                                                   film):
+    """``gn_film_silu_policy_backward_plain`` (the closed form B4's backward
+    kernel computes) against autograd of ``gn_film_silu_policy_plain`` at a
+    float32 norm dtype: group widths 1, 4 and 16, with and without FiLM
+    (``cond.chunk(2)`` views), 5 x 7 positions (a length that is not a
+    multiple of 8). float32 throughout; the two differ in the order of
+    their sums and in the variance's derivative (the closed form's mean
+    subtraction against autograd's E[x^2] - E[x]^2 terms) -> 1e-4 of each
+    gradient's largest value."""
+    x, gamma, beta, scale, shift = map(torch.from_numpy,
+                                       _inputs(3, 5, 7, C, seed=C + G))
+    cond = torch.cat([scale, shift], dim=-1)
+    scale, shift = cond.chunk(2, dim=-1) if film else (None, None)
+    g = torch.randn(x.shape, generator=torch.Generator().manual_seed(G))
+    leaves = [a if a is None else a.clone().requires_grad_()
+              for a in (x, gamma, beta, scale, shift)]
+    y = fn.gn_film_silu_policy_plain(leaves[0], leaves[1], leaves[2], G,
+                                     torch.float32, leaves[3], leaves[4])
+    want = torch.autograd.grad(y, [a for a in leaves if a is not None], g)
+    got = fn.gn_film_silu_policy_backward_plain(x, g, gamma, beta, G, scale,
+                                                shift)
+    assert (got[3] is None) == (got[4] is None) == (not film)
+    for a, b in zip([a for a in got if a is not None], want):
+        assert a.shape == b.shape and a.dtype == b.dtype == torch.float32
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-4 * b.abs().max().item())
 
 
 def test_condunet_runs_every_silu_chain_through_the_dispatcher(monkeypatch):
@@ -197,6 +232,32 @@ def test_geometry_of_every_main_path_shape(hw, C, B):
         assert geo.regime == "cluster" and geo.vec == 8
         assert geo.cluster == (4 if sample <= 512 << 10 else
                                8 if sample <= 2 << 20 else 16)
+
+
+@pytest.mark.parametrize("B", [16, 4])
+@pytest.mark.parametrize("hw,C", MAIN_PATH)
+def test_backward_geometry_of_every_main_path_shape(hw, C, B):
+    """B4's backward at every CondUNet chain shape, bf16 x: 16 bytes of g
+    per load (vec 4); up to 64 MiB of x and g in the batch the cluster
+    regime (blocks covering each sample exactly once, nothing resident, 4 /
+    8 / 16 blocks per sample up to 512 KB / 2 MB / above of x and g), else
+    the three-pass one; at batch 16 the 128² shapes and 64²×256 take three
+    passes."""
+    geo = fn.backward_geometry(B, hw, C, 32, torch.bfloat16, True)
+    n, step = hw * C, geo.threads * geo.vec
+    assert step % C == 0 and (step // C) & (step // C - 1) == 0
+    assert geo.vec == 4 and geo.resident == 0
+    blocks = geo.tiles if geo.regime == "three_pass" else geo.cluster
+    assert (blocks - 1) * geo.iters * step < n <= blocks * geo.iters * step
+    sample = hw * C * 6
+    if B * sample > 64 << 20:
+        assert geo.regime == "three_pass"
+        assert B == 4 or hw == 128 * 128 or (hw, C) == (64 * 64, 256)
+        return
+    assert geo.regime == "cluster"
+    assert geo.smem == fn._cluster_fixed_bytes(geo.threads * geo.vec, C, 32)
+    assert geo.cluster == (4 if sample <= 512 << 10 else
+                           8 if sample <= 2 << 20 else 16)
 
 
 @pytest.mark.parametrize("C,G", REF)
