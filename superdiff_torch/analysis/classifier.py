@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from superdiff_torch.analysis.features import SmallCNN
-from superdiff_torch.training.state import make_optimizer
+from superdiff_torch.training.state import make_optimizer, step_numbers
 
 
 def _tensor(a, device, dtype):
@@ -53,7 +53,9 @@ def train_classifier(batches: Iterable, num_classes: int = 2,
             logits = model(x)
             loss = F.cross_entropy(logits, y)
             grads = torch.autograd.grad(loss, params)
-            tx.update(params, list(grads), opt_state)
+            tx.update(params, list(grads), opt_state,
+                      scalars=step_numbers(tx, opt_state["count"], device))
+            opt_state["count"] += 1
             losses.append(loss.detach())
             accs.append((logits.argmax(-1) == y).float().mean())
             i += 1

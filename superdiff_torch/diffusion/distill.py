@@ -14,8 +14,9 @@ input requires grad, so its GroupNorm->FiLM->SiLU chains run through kernel
 B4 and its attention through B1 on the card), the target solve, the
 student's forward and backward under autograd (its chains through B4's
 forward and backward kernels at a float32 norm dtype, else the plain
-chain; its attention through B1/B2/B3), Adam and the EMA update, in place
-on the state. Per-example transitions are gathered from device tables, so
+chain; its attention through B1/B2/B3), then the train step's update tail
+(``training/steps.py::apply_update``: Adam and the EMA update, in place
+on the state). Per-example transitions are gathered from device tables, so
 every batch element trains its own transition.
 
 Random draws. The JAX step derives its draws from a key chain torch cannot
@@ -42,9 +43,9 @@ from superdiff_torch.data.transforms import prepare_batch
 from superdiff_torch.diffusion.process import _bcast_to, x0_from_pred
 from superdiff_torch.diffusion.samplers import trailing_timesteps
 from superdiff_torch.diffusion.schedules import DiffusionSchedule
-from superdiff_torch.parallel.mesh import (
-    all_reduce_mean, gather_rows, local_rows)
-from superdiff_torch.training.state import TrainState, ema_update
+from superdiff_torch.parallel.mesh import gather_rows, local_rows
+from superdiff_torch.training.state import TrainState, step_numbers
+from superdiff_torch.training.steps import apply_update
 
 
 def _alpha_sigma(schedule: DiffusionSchedule, t: np.ndarray):
@@ -140,6 +141,8 @@ def make_distill_step(schedule: DiffusionSchedule,
             x0 = prepare_batch(x0, None, augmentation="none",
                                normalization=normalization)
         B, dev = x0.shape[0], x0.device
+        numbers = step_numbers(state.tx, state.opt_state["count"], dev,
+                               ema=(state.ema_decay, state.step))
         cond = ()
         if conditional:
             y = batch["label"]
@@ -178,8 +181,7 @@ def make_distill_step(schedule: DiffusionSchedule,
             x_pp = _ddim_to(x_m, a_m, s_m, a_e, s_e, eps2, clip_x0=clip_x0)
             x0_target = distill_targets(x_s, a_s, s_s, a_e, s_e, x_pp)
 
-        params = state.params
-        for p in params:
+        for p in state.params:
             p.grad = None
         state.model.eval()
         pred = state.model(x_s, t_s, *cond)
@@ -190,17 +192,9 @@ def make_distill_step(schedule: DiffusionSchedule,
         diff = x0_student.float() - x0_target.float()
         loss = (w * diff.reshape(B, -1).square().mean(dim=1)).mean()
         loss.backward()
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in params]
-        loss = loss.detach()
-        if mesh is not None:
-            all_reduce_mean(grads, mesh)
-            all_reduce_mean([loss], mesh)
-        grad_norm = state.tx.update(params, grads, state.opt_state)
-        ema_update(state.ema_params, params, state.ema_decay, state.step)
+        loss, grad_norm = apply_update(state, loss.detach(), numbers, mesh)
+        state.opt_state["count"] += 1
         state.step += 1
-        for p in params:
-            p.grad = None
         return state, {"loss": loss, "grad_norm": grad_norm}
 
     return step_fn

@@ -15,8 +15,8 @@ a device counter) is captured once, and each step of a run is one
 - **Capture**: the plan runs a few steps eagerly on a side stream first (so
   the kernels' lazy build and load, ``ops/_build.py``, and cuDNN's plan
   selection happen outside the graph), then one step is captured with
-  ``capture_error_mode="thread_local"``. A failed capture raises; there is
-  no eager fallback on the card.
+  ``capture_error_mode="thread_local"`` (``utils/graphs.py``). A failed
+  capture raises; there is no eager fallback on the card.
 - **Memory**: the plan's buffers are ordinary allocations made before the
   capture; the step's intermediates live in the graph's private pool, which
   the graphs of one service share (``pool=``, from
@@ -39,6 +39,7 @@ from typing import Optional, Sequence
 import torch
 
 from superdiff_torch.diffusion.samplers import SamplerPlan, _run_plan
+from superdiff_torch.utils import graphs
 
 WARMUP_STEPS = 2
 
@@ -85,20 +86,17 @@ class GraphedSampler:
     @torch.no_grad()
     def _capture(self, pool) -> "torch.cuda.CUDAGraph":
         global captures
-        plan, dev = self.plan, self.device
+        plan = self.plan
         blank = plan.x.new_zeros(plan.draw_shape)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
+
+        def warm():
             for _ in range(WARMUP_STEPS):
                 plan.start(blank)
                 plan.step()
-        torch.cuda.current_stream(dev).wait_stream(side)
+
+        graphs.warm_up(warm, self.device)
         plan.start(blank)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=pool,
-                              capture_error_mode="thread_local"):
-            plan.step()
+        graph, _ = graphs.capture(plan.step, pool)
         captures += 1
         return graph
 

@@ -87,15 +87,14 @@ def graph_time_ms(fn, calls=20, replays=10):
     synchronisation, no read-back."""
     import torch
 
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+    from superdiff_torch.utils import graphs
+
+    def run():
         for _ in range(calls):
             fn()
+
+    graphs.warm_up(fn)
+    graph, _ = graphs.capture(run)
     graph.replay()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)

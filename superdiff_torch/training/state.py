@@ -30,7 +30,7 @@ from __future__ import annotations
 import copy
 import math
 from dataclasses import dataclass, field
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -91,20 +91,17 @@ class Optimizer:
 
     @torch.no_grad()
     def update(self, params: List[torch.Tensor], grads: List[torch.Tensor],
-               opt_state: dict,
-               grad_norm: Optional[torch.Tensor] = None,
-               scalars: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Apply one update in place (``params``, ``opt_state``; ``grads``
-        are scaled in place when clipped). Returns the global norm of the
-        gradients as they came in (float32 scalar tensor): ``grad_norm``
-        when given (the norm over every rank's shards, where the lists hold
-        one rank's shards), else the norm of ``grads``.
-
-        ``scalars``, a float32 device tensor holding
-        :meth:`step_scalars` of the count, stands in for those Python
-        numbers, so that a captured update reads them anew at each replay;
-        the count is then the caller's to advance. Both forms give the
-        same bits."""
+               opt_state: dict, *, scalars: torch.Tensor,
+               grad_norm: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Apply one update in place (``params``, ``opt_state``'s moments;
+        ``grads`` are scaled in place when clipped). ``scalars`` is a
+        float32 tensor on the parameters' device holding :meth:`step_scalars`
+        of the count (:func:`step_numbers`), so that a captured update reads
+        them anew at each replay; the count is the caller's to advance.
+        Returns the global norm of the gradients as they came in (float32
+        scalar tensor): ``grad_norm`` when given (the norm over every rank's
+        shards, where the lists hold one rank's shards), else the norm of
+        ``grads``."""
         if grad_norm is None:
             grad_norm = torch.linalg.vector_norm(
                 torch.stack(torch._foreach_norm(grads)))
@@ -113,14 +110,12 @@ class Optimizer:
             factor = torch.where(grad_norm < m, torch.ones_like(grad_norm),
                                  m / grad_norm)
             torch._foreach_mul_(grads, factor)
-        mu, nu, count = opt_state["mu"], opt_state["nu"], opt_state["count"]
+        mu, nu = opt_state["mu"], opt_state["nu"]
         torch._foreach_mul_(mu, self.b1)
         torch._foreach_add_(mu, grads, alpha=1.0 - self.b1)
         torch._foreach_mul_(nu, self.b2)
         torch._foreach_addcmul_(nu, grads, grads, value=1.0 - self.b2)
-        bc1, bc2, inv1, inv2, neg_lr = (
-            self.step_scalars(count) if scalars is None
-            else scalars.unbind())
+        bc1, bc2, inv1, inv2, neg_lr = scalars.unbind()
         denom = _div_scalar(nu, bc2, inv2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
@@ -129,8 +124,6 @@ class Optimizer:
         if self.weight_decay > 0:
             torch._foreach_add_(upd, params, alpha=self.weight_decay)
         _add_scaled(params, upd, neg_lr)
-        if scalars is None:
-            opt_state["count"] = count + 1
         return grad_norm
 
 
@@ -185,38 +178,49 @@ def ema_scalars(decay: float, step: int) -> List[float]:
     return [eff, 1.0 - eff]
 
 
+def step_numbers(tx: Optimizer, count: int, device,
+                 ema: Optional[Tuple[float, int]] = None) -> torch.Tensor:
+    """The numbers of one update that change from step to step, as a
+    float32 tensor on ``device``: ``tx.step_scalars(count)``, then, with
+    ``ema = (decay, step)``, :func:`ema_scalars` of them. Taken in double
+    on the host and copied by a fresh pinned tensor on a CUDA device, so
+    the host never waits for the copy."""
+    vals = tx.step_scalars(count)
+    if ema is not None:
+        vals = vals + ema_scalars(*ema)
+    device = torch.device(device)
+    return torch.tensor(vals, dtype=torch.float32,
+                        pin_memory=device.type == "cuda").to(
+                            device, non_blocking=True)
+
+
 @torch.no_grad()
 def ema_update(ema_params: List[torch.Tensor],
-               new_params: List[torch.Tensor], decay: float,
-               step: int, scalars: Optional[torch.Tensor] = None) -> None:
-    """In-place EMA with warmup: the effective decay ramps in as
-    ``min(decay, (1 + step) / (10 + step))``, ``step`` being the count
-    *before* this update, so early steps track the raw parameters.
-    ``scalars``, a float32 device tensor holding :func:`ema_scalars`,
-    stands in for ``decay`` and ``step`` (the same bits)."""
-    eff, rest = (ema_scalars(decay, step) if scalars is None
-                 else scalars.unbind())
+               new_params: List[torch.Tensor],
+               scalars: torch.Tensor) -> None:
+    """In-place EMA with warmup: ``ema = eff ema + (1 - eff) new``, the
+    effective decay ``eff = min(decay, (1 + step) / (10 + step))`` ramping
+    in with ``step``, the count *before* this update, so early steps track
+    the raw parameters. ``scalars`` is a float32 tensor holding
+    :func:`ema_scalars` (the tail of :func:`step_numbers`)."""
+    eff, rest = scalars.unbind()
     torch._foreach_mul_(ema_params, eff)
     _add_scaled(ema_params, new_params, rest)
 
 
-def _div_scalar(xs: List[torch.Tensor], s, inv) -> List[torch.Tensor]:
-    """``xs / s`` as new tensors. ``s`` and its reciprocal ``inv`` are
-    Python numbers or 0-d device tensors of them, and the tensor form
-    rounds as PyTorch divides by a Python number on the tensors' device:
-    a CUDA kernel multiplies by the reciprocal taken in double, the CPU
-    divides."""
-    if isinstance(s, torch.Tensor) and s.device.type == "cuda":
+def _div_scalar(xs: List[torch.Tensor], s: torch.Tensor,
+                inv: torch.Tensor) -> List[torch.Tensor]:
+    """``xs / s`` as new tensors, ``s`` and its reciprocal ``inv`` 0-d
+    tensors, rounded as PyTorch divides by a Python number on the tensors'
+    device: a CUDA kernel multiplies by the reciprocal taken in double, the
+    CPU divides."""
+    if s.device.type == "cuda":
         return torch._foreach_mul(xs, inv)
     return torch._foreach_div(xs, s)
 
 
 def _add_scaled(acc: List[torch.Tensor], xs: List[torch.Tensor],
-                scale) -> None:
-    """``acc += scale * xs`` in place, as one multiply-add per element:
-    ``scale`` a Python number (``alpha``) or a 0-d device tensor (the same
-    rounding through ``addcmul``)."""
-    if isinstance(scale, torch.Tensor):
-        torch._foreach_addcmul_(acc, xs, [scale] * len(xs))
-    else:
-        torch._foreach_add_(acc, xs, alpha=scale)
+                scale: torch.Tensor) -> None:
+    """``acc += scale * xs`` in place, ``scale`` a 0-d tensor, as one
+    multiply-add per element (the rounding of ``add_`` with ``alpha``)."""
+    torch._foreach_addcmul_(acc, xs, [scale] * len(xs))

@@ -31,32 +31,35 @@ draws from ``state.generator`` in this fixed order, per microbatch:
 ``t`` and ``noise``; with ``grad_accum > 1`` it is a list of such dicts, one
 per microbatch.
 
-Launching. Without a ``mesh`` and injected ``draws``, a step is split in
-two, the counterpart of the JAX package's one jitted step:
+Launching. Every step is split in two, the counterpart of the JAX
+package's one jitted step:
 
-1. on the host, eagerly: the batch is copied into static buffers, the
-   step's draws are drawn from ``state.generator`` in the order above, all
-   microbatches first, into static buffers (the same calls, so the same
-   bits), and the numbers that change from step to step
-   (``Optimizer.step_scalars`` of the count and ``ema_scalars`` of the
-   step, taken on the host in double) are written into a static float32
-   tensor by a fresh pinned copy;
+1. on the host, eagerly: the step's draws are taken ahead, all
+   microbatches first, those injected as given (moved to the step's
+   device) and the rest from ``state.generator`` in the order above (the
+   same calls as drawing microbatch by microbatch, so the same bits; with
+   a ``mesh``, of the global microbatch's shape); the numbers that change
+   from step to step (``Optimizer.step_scalars`` of the count and
+   ``ema_scalars`` of the step) are made a float32 device tensor
+   (``training/state.py::step_numbers``);
 2. the body: the loss of every microbatch on those draws, the backward,
-   the clip, Adam and the EMA, reading the numbers from that tensor.
+   and the update tail (:func:`apply_update`: the average over ``data``,
+   the clip, Adam and the EMA, reading the numbers from that tensor).
 
-On a CUDA device the body is captured as one CUDA graph and each step
-replays it: the first call with a new key runs the body eagerly on a side
-stream (a real step, which also builds the kernels and picks cuDNN's
-plans), the second captures it and replays it. The key is the device, the
-batch's shapes and dtypes and the addresses of the parameters, the
+Without a ``mesh`` and injected ``draws``, the body runs on static
+buffers: the batch, the draws and the numbers are copied in. On a CUDA
+device it is captured as one CUDA graph and each step replays it: the
+first call with a new key runs the body eagerly on a side stream (a real
+step, which also builds the kernels and picks cuDNN's plans), the second
+captures it and replays it (``utils/graphs.py``). The key is the device,
+the batch's shapes and dtypes and the addresses of the parameters, the
 moments and the EMA, so a checkpoint restore (which copies in place)
 keeps the graph; a new key takes a new warm-up step and capture. On the
-CPU the same split runs the body eagerly. A ``mesh`` (collectives) or
-injected ``draws`` take the eager step, which draws as it goes and passes
-the per-step numbers as Python floats; both forms give the same bits
-(``Optimizer.update``). ``state.step`` and the Adam count advance on the
-host. The metrics are copies of the graph's outputs, so they never alias
-the next step's.
+CPU the same body runs eagerly on the buffers. A ``mesh`` (collectives)
+or injected ``draws`` run the same body eagerly on the step's own
+tensors. ``state.step`` and the Adam count advance on the host, after
+the body. The metrics are copies of the graph's outputs, so they never
+alias the next step's.
 
 Counts: ``captures`` (graphs captured), ``replays`` and ``eager_steps``
 (steps run without a graph, the warm-up steps among them) since
@@ -82,8 +85,8 @@ from superdiff_torch.diffusion.schedules import DiffusionSchedule
 from superdiff_torch.parallel.mesh import (
     all_reduce_mean, gather_rows, local_rows)
 from superdiff_torch.training.state import (
-    TrainState, ema_scalars, ema_update)
-from superdiff_torch.utils import profiling
+    TrainState, ema_update, step_numbers)
+from superdiff_torch.utils import graphs, profiling
 
 captures = 0                  # train-step graphs captured since the reset
 replays = 0                   # their replays
@@ -124,56 +127,53 @@ def make_train_step(schedule: DiffusionSchedule,
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     fsdp = state_shardings is not None and state_shardings.fsdp
 
-    def fill_draws(x: torch.Tensor, g, given: dict) -> dict:
-        """Every draw of a loss on the microbatch ``x``: those in ``given``
-        as they are, the rest from ``g`` in the module docstring's
+    def fill_draws(shape, dtype, dev, g, given: dict) -> dict:
+        """Every draw of a loss on a microbatch of ``shape`` and ``dtype``
+        (the global microbatch's, with a mesh): those in ``given`` as they
+        are, on ``dev``, the rest from ``g`` in the module docstring's
         order."""
-        d = dict(given)
-        B, dev = x.shape[0], x.device
-        if x.dtype == torch.uint8 and augmentation != "none":
-            d["aug"] = augment_draws(x.shape, g, augmentation, dev,
-                                     given.get("aug"))
+        d = {k: v.to(dev) for k, v in given.items() if k != "aug"}
+        if dtype == torch.uint8 and augmentation != "none":
+            d["aug"] = {k: v.to(dev) for k, v in augment_draws(
+                shape, g, augmentation, dev, given.get("aug")).items()}
         if conditional and cfg_drop_prob > 0.0 and "drop" not in d:
-            d["drop"] = torch.rand((B,), generator=g,
+            d["drop"] = torch.rand((shape[0],), generator=g,
                                    device=dev) < cfg_drop_prob
-        dtype = torch.float32 if x.dtype == torch.uint8 else x.dtype
-        d["t"], d["noise"] = _loss_draws(schedule, x.shape, dtype, dev, g, d)
+        d["t"], d["noise"] = _loss_draws(
+            schedule, shape, torch.float32 if dtype == torch.uint8 else dtype,
+            dev, g, d)
         return d
 
-    def loss_of(state: TrainState, batch, draws) -> torch.Tensor:
-        g = state.generator
+    def loss_of(state: TrainState, batch, draws: dict) -> torch.Tensor:
+        """The loss of a microbatch on its complete ``draws``."""
         if mesh is not None:          # the global microbatch, every rank
             batch = {k: gather_rows(v, mesh) for k, v in batch.items()}
         x = batch["image"]
-        draws = fill_draws(x, g, draws)
         if x.dtype == torch.uint8:
-            x = prepare_batch(x, g, augmentation=augmentation,
+            x = prepare_batch(x, None, augmentation=augmentation,
                               normalization=normalization,
                               draws=draws.get("aug"))
         y = None
         if conditional:
             y = batch["label"]
             if cfg_drop_prob > 0.0:
-                y = torch.where(draws["drop"].to(x.device),
+                y = torch.where(draws["drop"],
                                 torch.full_like(y, null_label), y)
         t, noise = draws["t"], draws["noise"]
         if mesh is not None:          # this rank's rows
             rows = local_rows(x.shape[0], mesh)
             x, t, noise = x[rows], t[rows], noise[rows]
             y = None if y is None else y[rows]
-        return loss_fn_impl(schedule, state.model, x, g, y=y,
+        return loss_fn_impl(schedule, state.model, x, None, y=y,
                             loss_type=loss_type, weighting=weighting,
                             min_snr_gamma=min_snr_gamma,
                             parameterization=parameterization,
                             t=t, noise=noise)
 
-    def body(state: TrainState, batch, draws, scalars=None) -> tuple:
-        """Loss, backward, clip, Adam and EMA on ``draws`` (one dict per
-        microbatch): ``(loss, grad_norm)``. ``scalars``: the split step's
-        tensor of the per-step numbers; None takes them from the state as
-        Python floats and lets the optimizer advance the count."""
-        params = state.params
-        for p in params:
+    def body(state: TrainState, batch, draws, numbers) -> tuple:
+        """Loss and backward on ``draws`` (one dict per microbatch), then
+        the update tail on ``numbers``: ``(loss, grad_norm)``."""
+        for p in state.params:
             p.grad = None
         state.model.train()
         mb = batch["image"].shape[0] // grad_accum
@@ -189,33 +189,8 @@ def make_train_step(schedule: DiffusionSchedule,
                 (loss / grad_accum).backward()
             loss_sum = loss.detach() if loss_sum is None else (
                 loss_sum + loss.detach())
-        grads = _local([p.grad if p.grad is not None else torch.zeros_like(p)
-                        for p in params])
-        loss = loss_sum / grad_accum
-        grad_norm = None
-        if mesh is not None:
-            if not fsdp:
-                all_reduce_mean(grads, mesh)
-            all_reduce_mean([loss], mesh)
-            if state_shardings is not None:
-                grad_norm = _global_norm(state, grads, state_shardings)
-        opt = state.opt_state
-        if fsdp:                      # the moments' local shards
-            opt = dict(opt, mu=_local(opt["mu"]), nu=_local(opt["nu"]))
-        kw, ema_kw = {}, {}
-        if grad_norm is not None:
-            kw["grad_norm"] = grad_norm
-        if scalars is not None:       # Adam's numbers, then the EMA's two
-            kw["scalars"], ema_kw["scalars"] = scalars[:-2], scalars[-2:]
-        with profiling.span("train.optimizer"):
-            grad_norm = state.tx.update(_local(params), grads, opt, **kw)
-        state.opt_state["count"] = opt["count"]
-        with profiling.span("train.ema"):
-            ema_update(_local(state.ema_params), _local(params),
-                       state.ema_decay, state.step, **ema_kw)
-        for p in params:
-            p.grad = None
-        return loss, grad_norm
+        return apply_update(state, loss_sum / grad_accum, numbers, mesh,
+                            state_shardings)
 
     def step_fn(state: TrainState, batch, draws=None) -> tuple:
         with profiling.span("train.step"):
@@ -227,29 +202,32 @@ def make_train_step(schedule: DiffusionSchedule,
 
     def _step(state: TrainState, batch, draws) -> tuple:
         global eager_steps
-        B = batch["image"].shape[0]
-        if B % grad_accum:
-            raise ValueError(f"batch size {B} not divisible by "
+        x = batch["image"]
+        if x.shape[0] % grad_accum:
+            raise ValueError(f"batch size {x.shape[0]} not divisible by "
                              f"grad_accum {grad_accum}")
-        if mesh is None and draws is None:
-            g, mb = state.generator, B // grad_accum
-            draws = [fill_draws(batch["image"][i * mb:(i + 1) * mb], g, {})
-                     for i in range(grad_accum)]
-            numbers = (state.tx.step_scalars(state.opt_state["count"])
-                       + ema_scalars(state.ema_decay, state.step))
-            loss, grad_norm = split(state, batch, draws, numbers)
-            state.opt_state["count"] += 1
-            metrics = {"loss": loss.clone(), "grad_norm": grad_norm.clone()}
-        else:
-            if draws is None:
-                draws = [{}] * grad_accum
-            elif grad_accum == 1 and isinstance(draws, dict):
-                draws = [draws]
-            if len(draws) != grad_accum:
-                raise ValueError(f"draws must hold {grad_accum} entries")
-            loss, grad_norm = body(state, batch, draws)
+        eager = mesh is not None or draws is not None
+        if draws is None:
+            draws = [{}] * grad_accum
+        elif grad_accum == 1 and isinstance(draws, dict):
+            draws = [draws]
+        if len(draws) != grad_accum:
+            raise ValueError(f"draws must hold {grad_accum} entries")
+        rows = x.shape[0] // grad_accum * (
+            1 if mesh is None else mesh.shape["data"])
+        shape = (rows,) + tuple(x.shape[1:])
+        draws = [fill_draws(shape, x.dtype, x.device, state.generator, d)
+                 for d in draws]
+        numbers = step_numbers(state.tx, state.opt_state["count"], x.device,
+                               ema=(state.ema_decay, state.step))
+        if eager:
+            loss, grad_norm = body(state, batch, draws, numbers)
             eager_steps += 1
             metrics = {"loss": loss, "grad_norm": grad_norm}
+        else:
+            loss, grad_norm = split(state, batch, draws, numbers)
+            metrics = {"loss": loss.clone(), "grad_norm": grad_norm.clone()}
+        state.opt_state["count"] += 1
         state.step += 1
         return state, metrics
 
@@ -277,46 +255,36 @@ class _Split:
                 tuple(map(torch.Tensor.data_ptr, leaves)))
 
     def __call__(self, state: TrainState, batch, draws,
-                 numbers) -> tuple:
+                 numbers: torch.Tensor) -> tuple:
         """One step's body on ``batch``, ``draws`` and the per-step
-        ``numbers`` (Python floats): ``(loss, grad_norm)``, the graph's own
-        outputs on the card."""
+        ``numbers``: ``(loss, grad_norm)``, the graph's own outputs on the
+        card."""
         global captures, replays, eager_steps
         key = self._key(state, batch)
-        dev = key[0]
-        vals = torch.tensor(numbers, dtype=torch.float32,
-                            pin_memory=dev.type == "cuda")
         if key != self.key:           # new static buffers, no graph
             self.key, self.warm, self.graph, self.out = key, False, None, None
             self.batch = {k: v.clone() for k, v in batch.items()}
             self.draws = draws        # fresh tensors, the step's own
-            self.scalars = vals.to(dev, non_blocking=True)
+            self.scalars = numbers
         else:
             for k, v in batch.items():
                 self.batch[k].copy_(v)
             _copy(self.draws, draws)
-            self.scalars.copy_(vals, non_blocking=True)
-        if dev.type != "cuda":
-            eager_steps += 1
+            self.scalars.copy_(numbers)
+
+        def run():
             return self.body(state, self.batch, self.draws, self.scalars)
+
+        if key[0].type != "cuda":
+            eager_steps += 1
+            return run()
         if not self.warm:             # a real step, eagerly on a side stream
-            cur = torch.cuda.current_stream(dev)
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(cur)
-            with torch.cuda.stream(side):
-                out = self.body(state, self.batch, self.draws, self.scalars)
-            cur.wait_stream(side)
-            for t in out:             # read on this stream, made on the side
-                t.record_stream(cur)
+            out = graphs.warm_up(run, key[0])
             self.warm = True
             eager_steps += 1
             return out
         if self.graph is None:
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                self.out = self.body(state, self.batch, self.draws,
-                                     self.scalars)
-            self.graph = graph
+            self.graph, self.out = graphs.capture(run)
             captures += 1
         with profiling.span("train.replay"):
             self.graph.replay()
@@ -341,7 +309,7 @@ def _loss_draws(schedule, shape, dtype, device, g, draws):
     """The timesteps, then the noise, of a loss on a batch of ``shape`` and
     ``dtype`` on ``device`` (the draws of
     ``diffusion/process.py::training_step``, in its order), unless
-    injected."""
+    injected (as they are)."""
     t = draws.get("t")
     if t is None:
         t = torch.randint(0, schedule.num_timesteps, (shape[0],),
@@ -349,7 +317,43 @@ def _loss_draws(schedule, shape, dtype, device, g, draws):
     noise = draws.get("noise")
     if noise is None:
         noise = torch.randn(shape, generator=g, dtype=dtype, device=device)
-    return t.to(device), noise.to(device)
+    return t, noise
+
+
+def apply_update(state: TrainState, loss: torch.Tensor,
+                 numbers: torch.Tensor, mesh=None,
+                 state_shardings=None) -> tuple:
+    """The update tail of a step whose backward has filled the parameters'
+    ``grad``: with a ``mesh``, the gradients (unless FSDP reduce-scattered
+    them) and ``loss`` averaged over ``data`` in place; the global norm,
+    the clip and Adam, and the EMA, on ``numbers``
+    (``training/state.py::step_numbers`` with the EMA's); the gradients
+    reset. ``(loss, grad_norm)``; the caller advances the count and the
+    step."""
+    fsdp = state_shardings is not None and state_shardings.fsdp
+    params = state.params
+    grads = _local([p.grad if p.grad is not None else torch.zeros_like(p)
+                    for p in params])
+    grad_norm = None
+    if mesh is not None:
+        if not fsdp:
+            all_reduce_mean(grads, mesh)
+        all_reduce_mean([loss], mesh)
+        if state_shardings is not None:
+            grad_norm = _global_norm(state, grads, state_shardings)
+    opt = state.opt_state
+    if fsdp:                          # the moments' local shards
+        opt = dict(opt, mu=_local(opt["mu"]), nu=_local(opt["nu"]))
+    with profiling.span("train.optimizer"):
+        grad_norm = state.tx.update(_local(params), grads, opt,
+                                    scalars=numbers[:-2],
+                                    grad_norm=grad_norm)
+    with profiling.span("train.ema"):
+        ema_update(_local(state.ema_params), _local(params),
+                   scalars=numbers[-2:])
+    for p in params:
+        p.grad = None
+    return loss, grad_norm
 
 
 def _local(tensors):

@@ -1,12 +1,12 @@
 """The split train step of ``superdiff_torch/training/steps.py`` on the CPU,
 where it runs its body eagerly: the draws taken ahead into static buffers
-and the per-step numbers read from a tensor give the eager step's bits.
+give the bits of the same body run on the step's own tensors.
 
-The eager step, which passes the per-step numbers as Python floats, runs
-with injected draws (drawn here, in the order the module documents, from
-a generator of the state's seed) and with a mesh of one process
-(``make_mesh`` without a process group), where it draws as it goes. The
-card's capture and replays are checked in ``tests/test_torch_cuda.py``."""
+That eager body runs with injected draws (drawn here, in the order the
+module documents, from a generator of the state's seed) and with a mesh of
+one process (``make_mesh`` without a process group), where the step takes
+the global microbatch's draws ahead as well. The card's capture and
+replays are checked in ``tests/test_torch_cuda.py``."""
 
 import pytest
 import torch
@@ -15,8 +15,7 @@ from superdiff_torch.diffusion import make_schedule
 from superdiff_torch.models.unet import CondUNet
 from superdiff_torch.parallel.mesh import make_mesh
 from superdiff_torch.training import steps
-from superdiff_torch.training.state import (
-    create_train_state, ema_scalars, ema_update, make_optimizer)
+from superdiff_torch.training.state import create_train_state, make_optimizer
 from superdiff_torch.training.steps import make_train_step
 
 torch.set_num_threads(1)
@@ -51,11 +50,15 @@ def _batches(n=3, uint8=False):
     return out
 
 
-def _run(mesh, opt, batches, inject=False, **kw):
+def _run(mesh, opt, batches, inject=False, seen=None, **kw):
     """Steps on ``batches``; ``inject``: with draws taken here from a
     generator of the state's seed, per microbatch the label-drop mask
-    (when it drops), then ``t``, then the noise."""
+    (when it drops), then ``t``, then the noise. ``seen`` collects the
+    generator's state at each forward of the model."""
     state = _state(opt)
+    if seen is not None:
+        state.model.register_forward_pre_hook(
+            lambda *_: seen.append(state.generator.get_state()))
     step = make_train_step(make_schedule(50, device="cpu"), mesh=mesh,
                            conditional=True, null_label=2, **kw)
     g = torch.Generator().manual_seed(5)
@@ -118,35 +121,26 @@ def test_split_step_draws_a_uint8_batch_augmentation_ahead(augmentation):
     _assert_same_state(split, eager)
 
 
-@pytest.mark.parametrize("opt", sorted(OPTS))
-def test_tensor_scalar_adam_and_ema_equal_the_float_path(opt):
-    """``Optimizer.update`` and ``ema_update`` with their per-step numbers
-    in a float32 tensor against the Python floats, over counts where the
-    warmup, the cosine and the clip act, on leaves whose sizes leave
-    vector tails: the same bits; only the float form advances the count."""
-    g = torch.Generator().manual_seed(0)
-    shapes = [(1,), (17,), (33, 5), (1000,), (4099,)]
-    params = [torch.randn(s, generator=g) for s in shapes]
-    tx = make_optimizer(**OPTS[opt])
-    a = ([p.clone() for p in params], tx.init(params))
-    b = ([p.clone() for p in params], tx.init(params))
-    ema_a = [p.clone() for p in params]
-    ema_b = [p.clone() for p in params]
-    for count in range(5):
-        grads = [torch.randn(s, generator=g) * 10 ** (count - 2)
-                 for s in shapes]
-        numbers = torch.tensor(tx.step_scalars(count), dtype=torch.float32)
-        na = tx.update(a[0], [x.clone() for x in grads], a[1])
-        nb = tx.update(b[0], [x.clone() for x in grads], b[1],
-                       scalars=numbers)
-        b[1]["count"] += 1
-        assert torch.equal(na, nb) and a[1]["count"] == b[1]["count"]
-        ema_update(ema_a, a[0], 0.995, count)
-        ema_update(ema_b, b[0], 0.995, count, scalars=torch.tensor(
-            ema_scalars(0.995, count), dtype=torch.float32))
-        for x, y in zip(a[0] + a[1]["mu"] + a[1]["nu"] + ema_a,
-                        b[0] + b[1]["mu"] + b[1]["nu"] + ema_b):
-            assert torch.equal(x, y)
+@pytest.mark.parametrize("drop", [0.0, 0.3])
+@pytest.mark.parametrize("grad_accum", [1, 2])
+def test_mesh_step_equals_the_split_step(drop, grad_accum):
+    """Three steps on a mesh of one process against the split step: the
+    same bits in loss, parameters, moments, EMA, count and generator; the
+    mesh step's draws are all taken before its first forward."""
+    batches = _batches()
+    kw = dict(cfg_drop_prob=drop, grad_accum=grad_accum)
+    split, l_split = _run(None, "warmup_clip", batches, **kw)
+    seen = []
+    mesh, l_mesh = _run(make_mesh(device="cpu"), "warmup_clip", batches,
+                        seen=seen, **kw)
+    assert [v.item() for v in l_split] == [v.item() for v in l_mesh]
+    _assert_same_state(split, mesh)
+    assert len(seen) == 3 * grad_accum
+    for i in range(3):
+        # every forward of a step sees the generator after all its draws
+        forwards = seen[i * grad_accum:(i + 1) * grad_accum]
+        assert all(torch.equal(g, forwards[-1]) for g in forwards)
+    assert torch.equal(seen[-1], mesh.generator.get_state())
 
 
 def test_metrics_of_consecutive_steps_do_not_alias():

@@ -23,7 +23,8 @@ from superdiff_torch.data.transforms import prepare_batch
 from superdiff_torch.diffusion import make_schedule
 from superdiff_torch.models.unet import CondUNet
 from superdiff_torch.training.state import (
-    create_train_state, ema_update, make_lr_schedule, make_optimizer)
+    create_train_state, ema_scalars, ema_update, make_lr_schedule,
+    make_optimizer, step_numbers)
 from superdiff_torch.training.steps import make_eval_step, make_train_step
 
 torch.set_num_threads(1)
@@ -124,7 +125,9 @@ def test_make_optimizer_matches_optax(kw):
     for i, g in enumerate(grads):
         upd, jst = tx.update([jnp.asarray(a) for a in g], jst, jp)
         jp = optax.apply_updates(jp, upd)
-        norm = opt.update(tp, [torch.from_numpy(a.copy()) for a in g], tst)
+        norm = opt.update(tp, [torch.from_numpy(a.copy()) for a in g], tst,
+                          scalars=step_numbers(opt, tst["count"], "cpu"))
+        tst["count"] += 1
         np.testing.assert_allclose(
             norm.item(), np.sqrt(sum((a.astype(np.float64) ** 2).sum()
                                      for a in g)), rtol=1e-6)
@@ -158,7 +161,8 @@ def test_ema_update_rule_and_no_aliasing():
     p = np.array([3.0, -1.0], np.float32)
     for step, decay in ((0, 0.995), (5, 0.995), (5000, 0.995), (3, 0.2)):
         te = [torch.from_numpy(e.copy())]
-        ema_update(te, [torch.from_numpy(p)], decay, step)
+        ema_update(te, [torch.from_numpy(p)], torch.tensor(
+            ema_scalars(decay, step), dtype=torch.float32))
         expect = j_ema([jnp.asarray(e)], [jnp.asarray(p)], decay,
                        jnp.asarray(step))
         np.testing.assert_allclose(te[0].numpy(), np.asarray(expect[0]),
@@ -309,9 +313,9 @@ def test_grad_accum_is_the_mean_of_microbatch_gradients(jax_side):
         seen = {}
         orig = probe.tx.update
 
-        def spy(params, grads, opt_state, seen=seen, orig=orig):
+        def spy(params, grads, opt_state, seen=seen, orig=orig, **kw):
             seen["g"] = [g.clone() for g in grads]
-            return orig(params, grads, opt_state)
+            return orig(params, grads, opt_state, **kw)
 
         probe.tx.update = spy
         _, m = one(probe, _t_batch(imgs[sl], labels[sl]), draws[i])
@@ -319,7 +323,8 @@ def test_grad_accum_is_the_mean_of_microbatch_gradients(jax_side):
         micro_losses.append(m["loss"].item())
     mean = [(a + b) / 2 for a, b in zip(*micro_grads)]
     norm = ref.tx.update(ref.params, [g.clone() for g in mean],
-                         ref.opt_state)
+                         ref.opt_state, scalars=step_numbers(
+                             ref.tx, ref.opt_state["count"], "cpu"))
     acc = _torch_state(jax_side["params"])
     two = make_train_step(schedule, grad_accum=2, **kw)
     acc, m = two(acc, _t_batch(imgs, labels), draws)
