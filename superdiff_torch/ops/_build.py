@@ -27,6 +27,7 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = {"fwd": _CSRC / "flash_attn_fwd.cu",
+           "fwd_wgmma": _CSRC / "flash_attn_fwd_wgmma.cu",
            "bwd": _CSRC / "flash_attn_bwd.cu",
            "gn": _CSRC / "group_norm_silu.cu"}
 _REPO = Path(__file__).resolve().parents[2]

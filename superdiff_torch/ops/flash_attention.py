@@ -1,7 +1,9 @@
 """Flash attention: the hand-written CUDA kernels and their plain versions.
 
 Port of ``superdiff_tpu/ops/flash_attention.py``: the forward
-(``_flash_kernel`` -> ``csrc/flash_attn_fwd.cu``) and the two backward kernels
+(``_flash_kernel`` -> ``csrc/flash_attn_fwd.cu``, and for long bf16
+sequences at D = 64 its second design ``csrc/flash_attn_fwd_wgmma.cu``) and
+the two backward kernels
 (``_flash_bwd_dq_kernel``, ``_flash_bwd_dkv_kernel`` ->
 ``csrc/flash_attn_bwd.cu``), tied together by :class:`FlashAttentionFn` as the
 reference ties them with ``jax.custom_vjp``. The sources are CUDA C++ for
@@ -26,7 +28,12 @@ Each kernel's launch geometry (warps per block, the tile it loops over,
 m-tiles per warp) is a Python function of the shape,
 :func:`_fwd_geometry` and :func:`_bwd_geometry`, over the tiles the kernels
 are built with (``_FWD_TILE``, ``_BWD_TILE``), as measured by
-``tools/tune_flash_fwd.py`` and ``tools/tune_flash_bwd.py``.
+``tools/tune_flash_fwd.py`` and ``tools/tune_flash_bwd.py``. The forward
+has two designs, chosen by :func:`_fwd_design` from the launch's shape:
+``"mma_sync"`` (``csrc/flash_attn_fwd.cu``, every launch but one kind) and
+``"wgmma"`` (``csrc/flash_attn_fwd_wgmma.cu``: bf16, D = 64, ``S`` and
+``Skv`` at least ``_WGMMA_MIN_S``, whole 128-key tiles), whose geometry is
+:func:`_fwd_wgmma_geometry`.
 
 A CUDA tensor launches the kernels or raises; a CPU tensor takes the plain
 versions (:func:`_flash_forward_plain`, :func:`_flash_backward_plain`), the
@@ -41,7 +48,9 @@ appended where it is not ``S`` (a cross-attention launch);
 ``bwd_dkv_captured_by_shape``) counts the forward (backward) launches
 among them that were recorded into a CUDA graph (made under stream
 capture), which the graph's replays launch again without this module
-seeing them. There is
+seeing them; ``launches_by_design`` and ``captured_by_design`` count the
+forward's launches by the same key with the design's name appended. There
+is
 no other backward: the reference's ``SUPERDIFF_TPU_FLASH_BWD=xla`` opt-out has
 no counterpart here.
 """
@@ -61,6 +70,8 @@ _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 launches = 0                 # forward kernel launches since the last reset
 launches_by_shape = {}       # (S, D, dtype name[, Skv]) -> launches
 captured_by_shape = {}       # the same, of launches made under capture
+launches_by_design = {}      # (S, D, dtype name[, Skv], design) -> launches
+captured_by_design = {}      # the same, of launches made under capture
 bwd_dq_launches = 0          # dQ kernel launches since the last reset
 bwd_dq_launches_by_shape = {}
 bwd_dq_captured_by_shape = {}    # the same, of launches made under capture
@@ -74,6 +85,8 @@ def reset_launches() -> None:
     launches = bwd_dq_launches = bwd_dkv_launches = 0
     launches_by_shape.clear()
     captured_by_shape.clear()
+    launches_by_design.clear()
+    captured_by_design.clear()
     bwd_dq_launches_by_shape.clear()
     bwd_dq_captured_by_shape.clear()
     bwd_dkv_launches_by_shape.clear()
@@ -96,6 +109,11 @@ def _load(which: str, defines=()):
         return _build.load("fwd", {
             "superdiff_flash_attn_fwd": [ptr] * 5 + [i32] + tail,
             "superdiff_flash_attn_fwd_info": [i32] * 5 + [ptr]}, defines)
+    if which == "fwd_wgmma":      # (..., B, S, Skv, H, D, scale, strides,
+        return _build.load("fwd_wgmma", {   # stream)
+            "superdiff_flash_attn_fwd_wgmma": [ptr] * 5 + [i32] * 5 + [
+                ctypes.c_float, ptr, ptr],
+            "superdiff_flash_attn_fwd_wgmma_info": [ptr]}, defines)
     return _build.load("bwd", {
         "superdiff_flash_attn_bwd_dq": [ptr] * 7 + tail,
         "superdiff_flash_attn_bwd_dkv": [ptr] * 8 + tail,
@@ -207,6 +225,93 @@ def _row_tiles(B: int, S: int, H: int, mt: int, what: str):
     return warps, grid
 
 
+# The second forward design (csrc/flash_attn_fwd_wgmma.cu): bf16, D = 64,
+# one block per 64 query rows, K/V tiles of 128 keys. Its ring, warpgroups,
+# registers and shared memory are the .cu's own (static_asserts there; the
+# card test reads them back through fwd_wgmma_kernel_info).
+_WGMMA_D = 64
+_WGMMA_ROWS = 64             # query rows per block
+_WGMMA_BN = 128              # keys per K/V tile
+# The shortest S and Skv it takes: a scope, not a measured crossover. At
+# S = 256, D = 64 this design also measured faster (PERF.md), yet every
+# launch below 1,024 positions stays on the first design until a rule
+# measured across wide256's cells moves it.
+_WGMMA_MIN_S = 1024
+
+
+def _fwd_design(S: int, Skv: int, D: int, dtype: torch.dtype) -> str:
+    """The forward design for a launch: ``"wgmma"`` for bf16 at D = 64
+    with ``S`` and ``Skv`` both at least ``_WGMMA_MIN_S`` and ``Skv`` a
+    whole number of its 128-key tiles (Stable Diffusion's self-attention
+    at 4,096 and 1,024 positions); ``"mma_sync"`` for every other launch
+    (wide256's S = 1024 at D = 32 and its S <= 256, cross-attention to 77
+    keys, float32). Of these conditions only the sequence floor is not
+    one the kernel needs (see ``_WGMMA_MIN_S``)."""
+    if (dtype == torch.bfloat16 and D == _WGMMA_D and S >= _WGMMA_MIN_S
+            and Skv >= _WGMMA_MIN_S and Skv % _WGMMA_BN == 0):
+        return "wgmma"
+    return "mma_sync"
+
+
+def _fwd_wgmma_geometry(B: int, S: int, H: int):
+    """Launch geometry of the wgmma design: ``(rows, grid)``; one block per
+    64 query rows of one (batch, head), the query tiles of a head in
+    consecutive blocks (they share its K and V in L2)."""
+    grid = (-(-S // _WGMMA_ROWS) * B * H,)
+    if grid[0] > _MAX_GRID_X:
+        raise ValueError(f"flash kernel grid {grid} out of range for "
+                         f"B*H={B * H}, S={S}")
+    return _WGMMA_ROWS, grid
+
+
+def _count_launch(q, k, design: str) -> None:
+    """Count one forward launch of ``design`` by shape and by shape and
+    design, and among the captured ones under stream capture."""
+    global launches
+    launches += 1
+    key = _shape_key(q, k)
+    launches_by_shape[key] = launches_by_shape.get(key, 0) + 1
+    launches_by_design[key + (design,)] = (
+        launches_by_design.get(key + (design,), 0) + 1)
+    if torch.cuda.is_current_stream_capturing():
+        captured_by_shape[key] = captured_by_shape.get(key, 0) + 1
+        captured_by_design[key + (design,)] = (
+            captured_by_design.get(key + (design,), 0) + 1)
+
+
+def _launch_fwd_wgmma(q, k, v):
+    """One launch of the wgmma design; inputs already checked by the
+    caller."""
+    B, S, H, D = q.shape
+    out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B * H, S), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 9)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+    with torch.cuda.device(q.device):
+        err = _load("fwd_wgmma").superdiff_flash_attn_fwd_wgmma(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), B, S, k.shape[1], H, D, 1.0 / math.sqrt(D),
+            strides, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attn_fwd_wgmma launch failed: CUDA error "
+                           f"{err} (shape {tuple(q.shape)}, Skv "
+                           f"{k.shape[1]}, strides {tuple(strides)})")
+    _count_launch(q, k, "wgmma")
+    return out, lse
+
+
+def fwd_wgmma_kernel_info() -> dict:
+    """What the compiler and the occupancy calculator say of the wgmma
+    design (needs the card), as :func:`fwd_kernel_info`."""
+    res = (ctypes.c_int * 4)()
+    err = _load("fwd_wgmma").superdiff_flash_attn_fwd_wgmma_info(res)
+    if err != 0:
+        raise RuntimeError(f"flash_attn_fwd_wgmma_info failed: CUDA error "
+                           f"{err}")
+    return dict(smem_bytes=res[0], registers=res[1], spill_bytes=res[2],
+                blocks_per_sm=res[3], warps_per_sm=res[3] * 8)
+
+
 def _launch_fwd(q, k, v, warps: int, bk: int, mt: int, defines=()):
     """One launch of the forward kernel at the given geometry, from the
     library built with ``defines``; inputs already checked by the
@@ -226,12 +331,7 @@ def _launch_fwd(q, k, v, warps: int, bk: int, mt: int, defines=()):
         raise RuntimeError(f"flash_attn_fwd launch failed: CUDA error {err} "
                            f"(shape {tuple(q.shape)}, Skv {k.shape[1]}, "
                            f"{q.dtype}, warps {warps}, bk {bk}, mt {mt})")
-    global launches
-    launches += 1
-    key = _shape_key(q, k)
-    launches_by_shape[key] = launches_by_shape.get(key, 0) + 1
-    if torch.cuda.is_current_stream_capturing():
-        captured_by_shape[key] = captured_by_shape.get(key, 0) + 1
+    _count_launch(q, k, "mma_sync")
     return out, lse
 
 
@@ -255,6 +355,8 @@ def _flash_forward_cuda(q, k, v):
         raise ValueError(f"flash kernel takes D in {SUPPORTED_HEAD_DIMS} and "
                          f"bfloat16/float32, got D={D} {q.dtype}")
     _check_kernel_layout(q=q, k=k, v=v)
+    if _fwd_design(S, k.shape[1], D, q.dtype) == "wgmma":
+        return _launch_fwd_wgmma(q, k, v)
     warps, bk, mt, _, _ = _fwd_geometry(B, S, H, D, q.element_size())
     return _launch_fwd(q, k, v, warps, bk, mt)
 

@@ -4,9 +4,11 @@
 keys per K/V tile and the grid from (B, S, H, D, dtype); the kernel itself
 runs only on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``),
 where its shared-memory layout is also checked against
-``_fwd_smem_bytes``."""
+``_fwd_smem_bytes``. ``_fwd_design`` picks B1's second design (the wgmma
+kernel) by shape, and ``_fwd_wgmma_geometry`` is that design's geometry."""
 
 import pytest
+import torch
 
 from superdiff_torch.ops import flash_attention as fa
 
@@ -75,3 +77,42 @@ def test_padded_rows_keep_ldmatrix_free_of_bank_conflicts(D, elem_size):
     row = fa._row_bytes(D, elem_size)
     assert row % 16 == 0 and (row // 16) % 2 == 1
     assert len({(r * row // 16) % 8 for r in range(8)}) == 8
+
+
+@pytest.mark.parametrize("S,Skv,D,dtype,design", [
+    (4096, 4096, 64, "bfloat16", "wgmma"),
+    (1024, 1024, 64, "bfloat16", "wgmma"),
+    (1100, 1024, 64, "bfloat16", "wgmma"),
+    (4096, 77, 64, "bfloat16", "mma_sync"),
+    (256, 256, 64, "bfloat16", "mma_sync"),
+    (64, 64, 64, "bfloat16", "mma_sync"),
+    (1024, 1024, 32, "bfloat16", "mma_sync"),
+    (1000, 1000, 64, "bfloat16", "mma_sync"),
+    (1024, 1100, 64, "bfloat16", "mma_sync"),
+    (4096, 4096, 128, "bfloat16", "mma_sync"),
+    (4096, 4096, 64, "float32", "mma_sync")],
+    ids=["sd64", "sd32", "ragged_q", "sd_cross", "w256_S256", "S64",
+         "w256_S1024", "S1000", "ragged_kv", "D128", "f32"])
+def test_the_wgmma_design_takes_long_bf16_d64_launches_only(S, Skv, D, dtype,
+                                                            design):
+    """Stable Diffusion's self-attention at 4,096 and 1,024 positions (bf16,
+    D = 64; queries may end in a partial tile, keys fill whole 128-key
+    tiles) takes the wgmma design; its cross-attention to 77 keys, every
+    wide256 launch, short sequences, other head dims and float32 keep the
+    mma.sync design."""
+    assert fa._fwd_design(S, Skv, D, getattr(torch, dtype)) == design
+
+
+@pytest.mark.parametrize("B,S,H", [(16, 4096, 5), (16, 1024, 10), (2, 1100, 3),
+                                   (1, 1024, 1), (16400, 1024, 4)])
+def test_wgmma_geometry_covers_s_and_fits_the_card(B, S, H):
+    """One block per 64 query rows of each (batch, head): the blocks cover
+    S with no block wholly past it, and the grid fits the card's one grid
+    dimension. (The design's ring, registers and shared memory are the
+    kernel's own, held by its static_asserts and read back on the card by
+    ``test_wgmma_instantiation_fits_without_spills_on_card``.)"""
+    rows, grid = fa._fwd_wgmma_geometry(B, S, H)
+    per_head = grid[0] // (B * H)
+    assert rows == fa._WGMMA_ROWS == 64
+    assert grid[0] == per_head * B * H <= 2 ** 31 - 1
+    assert per_head * rows >= S > (per_head - 1) * rows
